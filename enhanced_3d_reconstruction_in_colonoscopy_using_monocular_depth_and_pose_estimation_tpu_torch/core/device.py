@@ -1,0 +1,16 @@
+"""Device selection for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default; asking for
+    it on a machine without a card raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but "
+                           "torch.cuda.is_available() is False; pass "
+                           "device='cpu' to run on the CPU")
+    return dev
