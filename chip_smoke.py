@@ -5,14 +5,26 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from ``csrc/``, holds each one
-against its plain PyTorch version on the card, serves vitl DAv2 depth
-(seeded random weights, 518 px, batch 8) through ``DepthServingEngine``,
-checks that the served batches went through the kernels, holds one batch
-against the same model on the plain attention, and prints timings and a
-``torch.profiler`` breakdown of one batch's device time. The last line is ``{"ok": true, "device": {...}}``; any failed
-phase raises and exits non-zero. Without a CUDA device it exits 1 and
-prints no result.
+It builds every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
+source, in parallel), holds each one against its plain PyTorch version on
+the card, and drives the port's two paths at vitl width with seeded random
+weights:
+
+- serving: vitl DAv2 depth at 518 px, batch 8, through
+  ``DepthServingEngine``; checks that the served batches went through K1,
+  holds one batch against the same model on the plain attention, and
+  prints timings and a ``torch.profiler`` breakdown of one batch;
+- training: vitl depth fine-tuning at 518 px through ``fit_depth``
+  (16-mixed, gradient checkpointing, microbatch 8, grad-accum 4, four
+  optimizer steps, validation), with the attention backward on K2 (and
+  once more on K3, under the JAX package's ``E3D_FLASH_BWD_FUSED=0``
+  knob); checks launch counts, finite losses, that every parameter moved
+  and got a gradient, and the kernels' gradient against the plain
+  attention's; prints frames/s trained and a profile of one microbatch.
+
+The line before the last two is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Any failed phase raises and exits
+non-zero. Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +45,19 @@ FRAME_HW = (475, 475)   # SimCol frame size: 518 px network input, N = 1370
 BATCH = 8
 N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
+LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd"]
+JAX_FLASH = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
+             "depth_and_pose_estimation_tpu/ops/flash_attention.py")
+FLAGSHIP = (8, 1370, 16, 64)  # vitl at 518 px: B, N, H, D
+# Training: 14 microbatches of 8 frames, grad-accum 4 (the trainer's
+# default), so 4 optimizer steps, the last a trailing group of 2.
+TRAIN_MICROBATCHES = 14
+VAL_BATCHES = 2
+ACCUM = 4
+# The backward kernels round P and dS to bf16 before the products that
+# consume them; the plain backward computes in f32 from the same bf16
+# inputs and rounds only its outputs: max error over max |gradient|.
+BWD_TOL = 2e-2
 
 
 def _cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -65,15 +90,23 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    import re
+
     cbuild = importlib.import_module(f"{PKG}.utils.cbuild")
 
     t0 = time.perf_counter()
-    seconds = cbuild.build(["flash_attn_fwd"])
+    seconds = cbuild.build(LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
-    for line in cbuild.build_log("flash_attn_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name in LIBRARIES:
+        for line in cbuild.build_log(name).splitlines():
+            entry = re.search(r"(flash_attn_\w+?_kernel)ILi(\d+)E(?:Lb(\d)E)?",
+                              line)
+            if "Compiling entry" in line and entry:
+                args = ", ".join(a for a in entry.groups()[1:] if a)
+                print(f"  ptxas {name}: {entry.group(1)}<{args}>")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas:   {line.strip()}")
 
 
 def _attention_case(b: int, n: int, h: int, d: int, seed: int):
@@ -135,9 +168,7 @@ def phase_k1() -> dict:
           f"{flops / ms / 1e9:.1f} TFLOP/s")
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": f"{PKG}/csrc/flash_attn_fwd.cu",
-            "replaces": "enhanced_3d_reconstruction_in_colonoscopy_using_"
-                        "monocular_depth_and_pose_estimation_tpu/ops/"
-                        "flash_attention.py:336",
+            "replaces": f"{JAX_FLASH}:336",
             "max_abs_err": errs[flagship], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
@@ -275,46 +306,425 @@ def phase_throughput(model, frames, k1_ms: float, smi: str) -> None:
           " GiB")
 
 
-def phase_profile(model, frames) -> None:
-    """Where one vitl batch's device time goes: ``torch.profiler`` over a
-    few forwards, device time summed by kernel name, and the share of the
-    window in which the card ran no kernel."""
-    import numpy as np
-    import torch
+def _print_profile(prof, wall_us: float, plain_wall_us: float, iters: int,
+                   what: str) -> list:
+    """Device time by kernel name from a ``torch.profiler`` run over
+    ``iters`` repetitions, and the share of the window in which the card
+    ran no kernel: against the profiled wall time, and against the wall
+    time of the same runs without the profiler (whose own host cost
+    inflates the first). Returns the kernels' events, largest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    da = importlib.import_module(f"{PKG}.models.depth_anything")
-    net_hw = da._lower_bound_hw(*FRAME_HW, 518)
-    x = torch.from_numpy(np.stack(frames[:BATCH])).cuda()
-    for _ in range(2):
-        da._run_batched_u8(model, x, net_hw, FRAME_HW)
-    torch.cuda.synchronize()
-    iters = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            da._run_batched_u8(model, x, net_hw, FRAME_HW)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        print("device time by kernel: not measured (the profiler saw no "
-              "device events)")
-        return
-    print(f"device time, vitl batch {BATCH} (torch.profiler, {iters} "
-          f"forwards): {busy_us / iters / 1e3:.2f} ms/batch in kernels of "
+        print(f"device time by kernel, {what}: not measured (the profiler "
+              "saw no device events)")
+        return []
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    print(f"device time, {what} (torch.profiler, {iters} runs): "
+          f"{busy_us / iters / 1e3:.2f} ms per run in kernels of "
           f"{wall_us / iters / 1e3:.2f} ms wall; idle share "
-          f"{max(0.0, 1 - busy_us / wall_us):.3f}")
+          f"{max(0.0, 1 - busy_us / wall_us):.3f}; unprofiled "
+          f"{plain_wall_us / iters / 1e3:.2f} ms wall, idle share "
+          f"{max(0.0, 1 - busy_us / plain_wall_us):.3f}")
     kernels.sort(key=lambda e: -e.self_device_time_total)
     for e in kernels[:12]:
         print(f"  {100 * e.self_device_time_total / busy_us:5.1f}%  "
               f"{e.self_device_time_total / iters / 1e3:7.3f} ms  "
               f"x{e.count // iters:<4d} {e.key[:90]}")
+    return kernels
+
+
+def phase_profile(model, frames) -> None:
+    """Where one vitl batch's device time goes: ``torch.profiler`` over a
+    few forwards."""
+    import numpy as np
+    import torch
+
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    net_hw = da._lower_bound_hw(*FRAME_HW, 518)
+    x = torch.from_numpy(np.stack(frames[:BATCH])).cuda()
+    da._run_batched_u8(model, x, net_hw, FRAME_HW)
+    _profiled(lambda: da._run_batched_u8(model, x, net_hw, FRAME_HW), 3,
+              f"vitl batch {BATCH} forward")
+
+
+# ------------------------------------------------------------- training
+
+
+def _reset_counts(fa) -> None:
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_fused.launches = 0
+    fa.flash_attention_bwd_split.launches = 0
+
+
+def _profiled(fn, iters: int, what: str) -> list:
+    """``fn`` timed ``iters`` times on the host clock, then profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _print_profile(prof, wall_us, plain_wall_us, iters, what)
+
+
+def _counts(fa) -> dict[str, int]:
+    return {"K1": fa.flash_attention.launches,
+            "K2": fa.flash_attention_bwd_fused.launches,
+            "K3": fa.flash_attention_bwd_split.launches}
+
+
+def phase_bwd(fused: bool) -> dict:
+    """K2 (fused) or K3 (split) against the plain backward; times at the
+    flagship shape beside the plain version and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    name = "K2" if fused else "K3"
+    wrapper = (fa.flash_attention_bwd_fused if fused
+               else fa.flash_attention_bwd_split)
+
+    def case(shape, seed):
+        q, k, v = _attention_case(*shape, seed)
+        o, lse = fa.flash_attention(q, k, v)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+        do = torch.randn(q.shape, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        grads = torch.empty((*shape[:2], 3, *shape[2:]), device="cuda",
+                            dtype=torch.bfloat16).unbind(2)
+        return (q, k, v, o, lse, do), grads
+
+    errs = {}
+    for shape, seed in ((FLAGSHIP, 0), ((3, 130, 5, 32), 1)):
+        args, grads = case(shape, seed)
+        wrapper(*args, *grads)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_reference(*args)
+        abs_err = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(grads, ref))
+        rel = {n: ((g.float() - r.float()).abs().max()
+                   / r.float().abs().max()).item()
+               for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+        print(f"{name} {shape}: max|err| / max|ref| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+              + f" (tol {BWD_TOL}); max|err| {abs_err:.3e}")
+        if not all(torch.isfinite(g).all() for g in grads) \
+                or max(rel.values()) > BWD_TOL:
+            raise AssertionError(f"{name} disagrees with the plain backward "
+                                 f"at {shape}")
+        errs[shape] = abs_err
+        del args, grads, ref
+
+    b, n, h, d = FLAGSHIP
+    args, grads = case(FLAGSHIP, 0)
+    ms = _cuda_ms(lambda: wrapper(*args, *grads), iters=20)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(*args),
+                        iters=3, warmup=1)
+    q, k, v, o, lse, do = args
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh)
+    doh = do.transpose(1, 2).contiguous()
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True), iters=20)
+    flops = 5 * 2 * b * h * n * n * d
+    # Read q, k, v, o, dO (bf16) and LSE (f32); write dq, dk, dv (bf16).
+    nbytes = 8 * b * n * h * d * 2 + b * h * n * 4
+    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    print(f"{name} {FLAGSHIP}: wrapper {ms:.4f} ms per launch, plain "
+          f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+          f"MB), {flops / ms / 1e9:.1f} TFLOP/s")
+    # What the wrapper's time is made of: the kernels, delta, and for K2
+    # the zeroed dq scratch and its cast.
+    _profiled(lambda: wrapper(*args, *grads), 5,
+              f"{name} wrapper at {FLAGSHIP}")
+    return {"name": "flash_attn_bwd_fused" if fused else
+            "flash_attn_bwd_split", "route": "cuda",
+            "source": f"{PKG}/csrc/flash_attn_bwd.cu",
+            "replaces": f"{JAX_FLASH}:{507 if fused else 548}",
+            "max_abs_err": errs[FLAGSHIP], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "library_ms": library_ms}
+
+
+class SeededFrames:
+    """In-memory datamodule: seeded uint8 SimCol-size frames and uint16
+    depth, ``n_train`` batches of ``mb`` to train on, ``n_val`` to
+    validate on."""
+
+    size = 518
+
+    def __init__(self, n_train: int, n_val: int, mb: int, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+
+        def batch():
+            return {"image": rng.integers(0, 256, (mb, *FRAME_HW, 3),
+                                          dtype=np.uint8),
+                    "depth": rng.integers(1, 65536, (mb, *FRAME_HW),
+                                          dtype=np.uint16)}
+
+        self.batches = [batch() for _ in range(n_train)]
+        self.val = [batch() for _ in range(n_val)]
+        self.train_dataset = None
+
+    def setup(self, stage: str) -> None:
+        self.train_dataset = self.batches
+
+    def train_loader(self):
+        return self.batches
+
+    def val_loader(self):
+        return self.val
+
+
+def _flat(grads: dict):
+    import torch
+
+    return torch.cat([g.float().flatten() for _, g in sorted(grads.items())])
+
+
+def phase_grads(data) -> None:
+    """One microbatch's backward on the kernels: every trainable parameter
+    gets a finite, non-zero gradient (each attn.qkv weight and bias in
+    particular). Then the kernels' gradient against the plain attention's
+    in bf16 and in f32, all with gradient checkpointing."""
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    pre = importlib.import_module(f"{PKG}.data.preprocess")
+
+    task = dt.DepthTask("vitl", device="cuda")
+    model = da.build_depth_model("vitl", device="cuda", seed=1,
+                                 grad_checkpoint=True).train()
+    batch = pre.DevicePreprocessor(518, device="cuda")(data.batches[0],
+                                                       train=False)
+    maxd = torch.full((BATCH,), task.max_depth, device="cuda")
+
+    def grads(n: int, plain: bool = False, f32: bool = False) -> dict:
+        model.zero_grad(set_to_none=True)
+        attn.set_force_plain(plain)
+        if f32:
+            model.pretrained.dtype = torch.float32
+        try:
+            with torch.backends.cudnn.flags(
+                    enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                    deterministic=torch.backends.cudnn.deterministic,
+                    allow_tf32=not f32):
+                loss, _ = task._loss_and_metrics(
+                    model, batch["image"][:n], batch["depth"][:n], maxd[:n])
+                loss.backward()
+        finally:
+            model.pretrained.dtype = torch.bfloat16
+            attn.set_force_plain(False)
+        return {name: p.grad for name, p in model.named_parameters()
+                if name != "pretrained.mask_token"}
+
+    _reset_counts(fa)
+    g8 = grads(BATCH)
+    torch.cuda.synchronize()
+    counts = _counts(fa)
+    if counts != {"K1": 2 * BLOCKS, "K2": BLOCKS, "K3": 0}:
+        raise AssertionError(f"grads: launches {counts}, want K1 "
+                             f"{2 * BLOCKS} (forward and recompute), K2 "
+                             f"{BLOCKS}")
+    bad = [name for name, g in g8.items() if g is None
+           or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    qkv = [name for name in g8 if ".attn.qkv." in name]
+    print(f"grads, vitl microbatch {BATCH} on K1/K2: {len(g8)} parameters "
+          f"({len(qkv)} attn.qkv weights and biases), launches {counts}; "
+          f"{len(g8) - len(bad)} with a finite, non-zero gradient")
+    if bad or len(qkv) != 2 * BLOCKS:
+        raise AssertionError(f"grads: no finite, non-zero gradient for "
+                             f"{bad[:8]}")
+    del g8
+
+    n = 2  # plain attention keeps (n, 16, 1370, 1370) f32 scores
+    kernel = _flat(grads(n))
+    plain = _flat(grads(n, plain=True))
+    f32 = _flat(grads(n, plain=True, f32=True))
+    cos = torch.nn.functional.cosine_similarity
+
+    def dist(a):
+        return ((a - f32).norm() / f32.norm()).item(), cos(a, f32, dim=0).item()
+
+    (d_kf, c_kf), (d_pf, c_pf) = dist(kernel), dist(plain)
+    d_kp = ((kernel - plain).norm() / plain.norm()).item()
+    print(f"grads, vitl microbatch {n}, flattened ({kernel.numel()} values): "
+          f"K1/K2 bf16 vs plain f32 rel. norm {d_kf:.4f}, cos {c_kf:.6f}; "
+          f"plain bf16 vs plain f32 {d_pf:.4f}, cos {c_pf:.6f}; K1/K2 vs "
+          f"plain bf16 {d_kp:.4f}")
+    # Random vitl weights amplify bf16 rounding, so the check is relative:
+    # the kernels may be no further from f32 than 1.5x the plain bf16 path.
+    if not (d_kf <= 1.5 * d_pf and 1 - c_kf <= 1.5 ** 2 * (1 - c_pf)):
+        raise AssertionError("grads: the kernels' gradient is further from "
+                             "f32 than 1.5x the plain bf16 gradient's")
+
+
+def _read_log(log_dir: str) -> list[dict]:
+    import os
+
+    with open(os.path.join(log_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+def _fit(data, fused: bool, max_steps=None):
+    """``fit_depth`` on vitl with the recipe's defaults (16-mixed, gradient
+    checkpointing, the DAv2 LRs, clip 1.0) and OneCycle over 4 steps, the
+    backward on K2 (``fused``) or K3. Returns (state, launches, log
+    records, wall seconds)."""
+    import os
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    loop = importlib.import_module(f"{PKG}.train.loop")
+
+    task = dt.DepthTask("vitl", total_steps=4, grad_accum=ACCUM,
+                        device="cuda")
+    knob = fa._BWD_FUSED
+    fa._BWD_FUSED = fused
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            log_dir = os.path.join(tmp, "log")
+            torch.cuda.synchronize()
+            _reset_counts(fa)
+            t0 = time.perf_counter()
+            state = loop.fit_depth(task, data, max_epochs=1,
+                                   log_dir=log_dir,
+                                   ckpt_dir=os.path.join(tmp, "ckpt"),
+                                   val_check_interval=1.0, seed=0,
+                                   max_steps=max_steps)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _counts(fa)
+            records = _read_log(log_dir)
+    finally:
+        fa._BWD_FUSED = knob
+    return task, state, counts, records, seconds
+
+
+def phase_train(data, smi: str) -> tuple:
+    """The training path: vitl at 518 px through ``fit_depth``, K2."""
+    import math
+
+    import torch
+
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    init = {k: v.clone() for k, v in dt.DepthTask(
+        "vitl", device="cuda").init_state(0).model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    task, state, counts, records, seconds = _fit(data, fused=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_mb = TRAIN_MICROBATCHES
+    want = {"K1": 2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES,
+            "K2": BLOCKS * n_mb, "K3": 0}
+    steps = -(-n_mb // ACCUM)
+    train = [r for r in records if "train_loss" in r]
+    val = [r for r in records if "val_loss" in r]
+    perf = next(r for r in records if "perf/step_time_mean_s" in r)
+    values = [v for r in train + val for k, v in r.items()
+              if k.startswith(("train_loss", "Train/", "val_loss", "Val/"))]
+    moved = [k for k, v in state.model.state_dict().items()
+             if not torch.equal(v, init[k])]
+    frames = n_mb * BATCH
+    step_s = perf["perf/step_time_mean_s"]
+    print(f"train, vitl 518 px, 16-mixed, gradient checkpointing, "
+          f"{n_mb} microbatches of {BATCH}, accum {ACCUM}: {state.step} "
+          f"optimizer steps in {seconds:.2f} s (with preprocessing, "
+          f"validation on {VAL_BATCHES} batches and a checkpoint); "
+          f"launches {counts}")
+    print(f"  losses {[round(r['train_loss'], 5) for r in train]}, "
+          f"val_loss {val[-1]['val_loss']:.5f}; {len(moved)} of "
+          f"{len(init)} parameters changed")
+    print(f"  per optimizer step (StepTimer, {smi}): mean "
+          f"{step_s * 1e3:.1f} ms, p50 {perf['perf/step_time_p50_s'] * 1e3:.1f}"
+          f" ms; {frames / (step_s * steps):.2f} frames/s trained; "
+          f"{frames / seconds:.2f} frames/s over the whole fit; peak device "
+          f"memory {peak:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, want {want}")
+    if state.step != steps or len(train) != steps or len(val) != 1 \
+            or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"train: step {state.step}, records "
+                             f"{train + val}")
+    # mask_token is not used by the model: no gradient, zero init, so
+    # weight decay leaves it at zero.
+    still = sorted(set(init) - set(moved) - {"pretrained.mask_token"})
+    if still:
+        raise AssertionError(f"train: parameters unchanged: {still[:8]}")
+    return task, state, counts
+
+
+def phase_train_split(data) -> dict:
+    """The training path once more with the backward on K3 (the JAX
+    package's ``E3D_FLASH_BWD_FUSED=0``), one optimizer step."""
+    import math
+
+    _, state, counts, records, seconds = _fit(data, fused=False, max_steps=1)
+    want = {"K1": 2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES, "K2": 0,
+            "K3": BLOCKS * ACCUM}
+    loss = next(r["train_loss"] for r in records if "train_loss" in r)
+    print(f"train on K3: {state.step} optimizer step of {ACCUM} "
+          f"microbatches in {seconds:.2f} s, loss {loss:.5f}; launches "
+          f"{counts}")
+    if counts != want or not math.isfinite(loss):
+        raise AssertionError(f"train on K3: launches {counts}, want {want}")
+    return counts
+
+
+def phase_train_profile(task, state, data) -> None:
+    """Where one whole optimizer step's device time goes, and how long the
+    card idles in it: ``DepthTask.train_step`` on vitl, ``ACCUM``
+    microbatches of 8 (forward, recompute and backward on K1/K2), the
+    global-norm clip and the two-group AdamW step."""
+    import torch
+
+    pre = importlib.import_module(f"{PKG}.data.preprocess")
+    prep = pre.DevicePreprocessor(518, device="cuda")
+    prepped = [prep(b, train=False) for b in data.batches[:ACCUM]]
+    batch = {k: torch.stack([p[k] for p in prepped])
+             for k in ("image", "depth")}
+
+    def step():
+        task.train_step(state, batch)
+
+    iters = 2
+    kernels = _profiled(step, iters,
+                        f"vitl optimizer step ({ACCUM} microbatches of "
+                        f"{BATCH}, clip, AdamW)")
+    busy = sum(e.self_device_time_total for e in kernels)
+    for label, key in (("K1", "flash_attn_fwd"), ("K2", "flash_attn_bwd")):
+        t = sum(e.self_device_time_total for e in kernels if key in e.key)
+        if busy:
+            print(f"  {label} share {t / busy:.3f} "
+                  f"({t / iters / 1e3:.3f} ms per optimizer step)")
 
 
 def main() -> int:
@@ -327,17 +737,36 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
+    k2 = phase_bwd(fused=True)
+    k3 = phase_bwd(fused=False)
 
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     da = importlib.import_module(f"{PKG}.models.depth_anything")
     model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                  seed=0)
     frames = _frames(N_FRAMES, seed=0)
-    k1["launches"] = phase_serve(model, frames)
+    _reset_counts(fa)
+    serve_k1 = phase_serve(model, frames)
     phase_plain(model, frames[:BATCH])
     phase_throughput(model, frames, k1["ms"], smi)
     phase_profile(model, frames)
+    del model
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [k1]}))
+    data = SeededFrames(TRAIN_MICROBATCHES, VAL_BATCHES, BATCH, seed=1)
+    phase_grads(data)
+    torch.cuda.empty_cache()
+    task, state, train = phase_train(data, smi)
+    split = phase_train_split(data)
+    phase_train_profile(task, state, data)
+
+    k1["launches"] = serve_k1
+    k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"]}
+    k2["launches"] = train["K2"]
+    k2["launches_by_path"] = {"train": train["K2"]}
+    k3["launches"] = split["K3"]
+    k3["launches_by_path"] = {"train_split": split["K3"]}
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

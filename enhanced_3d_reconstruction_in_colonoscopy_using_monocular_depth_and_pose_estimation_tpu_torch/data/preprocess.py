@@ -1,0 +1,85 @@
+"""Device-side batch preparation for depth training and evaluation.
+
+``DevicePreprocessor`` takes a loader batch (raw uint8 images and uint16
+depth, or [0, 1] floats already resized on the host), uploads it, and on
+the device divides by 255 and 65535, resizes both to the model size with
+the antialiased bicubic resize (``ops.resize``, f32), and augments and
+normalises the image (``ops.augment``). As in the JAX package, the
+augmentation touches the image only: hflip and affine never move the
+depth, a property of the reference that is kept, not fixed. Combined
+SimCol + C3VD batches (a ``source`` field) get a per-sample ``max_depth``
+and C3VD depths scaled by 0.1 (mm to cm).
+
+The host resize helpers of the JAX module wait for the data slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..ops import augment as aug
+from ..ops.resize import resize_antialias
+
+
+class DevicePreprocessor:
+    """Loader batches -> model-ready batches on ``device``."""
+
+    def __init__(self, size: int = 518,
+                 augment_cfg: aug.AugmentConfig | None = None,
+                 device: str | torch.device = "cuda"):
+        self.size = size
+        self.augment_cfg = augment_cfg or aug.AugmentConfig()
+        self.device = resolve_device(device)
+
+    def _to01(self, image: torch.Tensor, depth: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """[0, 1] image (B, S, S, 3) and depth (B, S, S, 1) at the model
+        size."""
+        if image.dtype == torch.uint8:
+            size = (self.size, self.size)
+            img01 = resize_antialias(image.float() / 255.0, size)
+            dep01 = resize_antialias(depth.float()[..., None] / 65535.0, size)
+            return img01, dep01
+        return image, depth[..., None] if depth.dim() == 3 else depth
+
+    def __call__(self, batch: dict[str, Any], train: bool,
+                 generator: torch.Generator | None = None,
+                 max_depths: tuple[float, float] | None = None,
+                 aug_params: aug.AugmentParams | None = None
+                 ) -> dict[str, torch.Tensor]:
+        """batch: loader output with ``image`` and ``depth`` (numpy or
+        tensors). Returns {image, depth[, max_depth, source]} on the device.
+
+        ``train`` augments with draws from ``generator`` (a CPU
+        ``torch.Generator``), or with ``aug_params`` given explicitly.
+        ``max_depths``: (simcol_max, c3vd_max_in_cm) for batches with a
+        ``source`` field."""
+        image = torch.as_tensor(batch["image"]).to(self.device)
+        depth = torch.as_tensor(batch["depth"]).to(self.device)
+        if depth.dtype == torch.uint16:
+            depth = depth.to(torch.int32)  # uint16 has few kernels
+        img01, dep = self._to01(image, depth)
+        if train and aug_params is not None:
+            img = aug.apply_augment(img01, aug_params)
+        elif train:
+            if generator is None:
+                raise ValueError("train=True needs a generator or "
+                                 "aug_params")
+            img = aug.augment_batch(img01, generator, self.augment_cfg)
+        else:
+            img = aug.preprocess_eval(img01)
+
+        out = {"image": img, "depth": dep}
+        if "source" in batch and max_depths is not None:
+            source = torch.as_tensor(np.asarray(batch["source"])).to(
+                self.device)
+            scale = torch.where(source == 1, 0.1, 1.0).float()
+            out["depth"] = dep * scale[:, None, None, None]
+            out["max_depth"] = torch.where(
+                source == 1, max_depths[1], max_depths[0]).float()
+            out["source"] = source
+        return out

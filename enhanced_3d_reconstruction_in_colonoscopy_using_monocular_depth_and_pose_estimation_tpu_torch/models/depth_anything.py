@@ -47,15 +47,18 @@ class DepthAnythingV2(nn.Module):
     Input: (B, H, W, 3) NHWC, ImageNet-normalized, H/W multiples of 14.
     Output: (B, H, W) depth in [0, max_depth], f32. ``dtype`` is the
     compute dtype of encoder and decoder; parameters stay f32.
+    ``grad_checkpoint`` recomputes each encoder block in the backward
+    (training mode only).
     """
 
     def __init__(self, encoder: str = "vitl", features: int = 256,
                  out_channels: tuple[int, ...] = (256, 512, 1024, 1024),
                  max_depth: float = 20.0,
-                 dtype: torch.dtype = POLICY_BF16.compute_dtype):
+                 dtype: torch.dtype = POLICY_BF16.compute_dtype,
+                 grad_checkpoint: bool = False):
         super().__init__()
         self.max_depth = max_depth
-        self.pretrained = DinoViT(encoder, dtype)
+        self.pretrained = DinoViT(encoder, dtype, grad_checkpoint)
         self.depth_head = DPTHead(VIT_ARCHS[encoder]["embed_dim"], features,
                                   out_channels)
 
@@ -92,14 +95,18 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
 def build_depth_model(encoder: str, max_depth: float = 20.0,
                       dtype: torch.dtype = POLICY_BF16.compute_dtype,
                       device: str | torch.device = "cuda",
-                      seed: int = 0) -> DepthAnythingV2:
+                      seed: int = 0,
+                      grad_checkpoint: bool = False) -> DepthAnythingV2:
     """The ``encoder`` model on ``device`` in eval mode, with seeded random
-    weights (load a checkpoint over them with ``models.convert``)."""
+    weights (load a checkpoint over them with ``models.convert``). A
+    trainer puts it in ``.train()``; ``grad_checkpoint`` then recomputes
+    each encoder block in the backward."""
     dev = resolve_device(device)
     cfg = MODEL_CONFIGS[encoder]
     with dev:
         model = DepthAnythingV2(cfg["encoder"], cfg["features"],
-                                tuple(cfg["out_channels"]), max_depth, dtype)
+                                tuple(cfg["out_channels"]), max_depth, dtype,
+                                grad_checkpoint)
     return init_random(model, seed).eval()
 
 

@@ -11,10 +11,11 @@ the dtype of its input (``DinoViT.dtype``, bf16 on the card):
 - taps at the DAv2 block indices, each with the final LayerNorm, returned
   as (patch_tokens, cls_token).
 
-Attention goes through ``ops.attention`` (kernel K1 on the card). The
-residual stream is never padded: the kernel masks the ragged token edge
-itself. The fused-SwiGLU FFN of vitg, token merging and int8 are not
-ported yet.
+Attention goes through ``ops.attention`` (kernels K1 and K2 on the card).
+The residual stream is never padded: the kernels mask the ragged token
+edge themselves. ``grad_checkpoint`` recomputes each block in the backward
+(the JAX package's ``nn.remat(Block)``), in training mode only. The
+fused-SwiGLU FFN of vitg, token merging and int8 are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.dtypes import POLICY_BF16
 from ..ops import attention as attn_ops
@@ -140,9 +142,11 @@ def _torch_bicubic_matrix(out_size: int, in_size: int,
 @functools.lru_cache(maxsize=64)
 def _bicubic_tensor(out_size: int, in_size: int,
                     device: torch.device) -> torch.Tensor:
-    """``_torch_bicubic_matrix`` on the device, uploaded once per shape."""
-    return torch.from_numpy(_torch_bicubic_matrix(out_size, in_size)).to(
-        device)
+    """``_torch_bicubic_matrix`` on the device, uploaded once per shape
+    (outside inference mode, so training may save it for backward)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_torch_bicubic_matrix(out_size, in_size)).to(
+            device)
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid_h: int,
@@ -175,7 +179,8 @@ class DinoViT(nn.Module):
     """DINOv2 ViT trunk exposing DAv2-style intermediate features."""
 
     def __init__(self, encoder: str = "vitl",
-                 dtype: torch.dtype = POLICY_BF16.compute_dtype):
+                 dtype: torch.dtype = POLICY_BF16.compute_dtype,
+                 grad_checkpoint: bool = False):
         super().__init__()
         arch = VIT_ARCHS[encoder]
         if arch.get("ffn", "mlp") != "mlp":
@@ -185,6 +190,7 @@ class DinoViT(nn.Module):
         pos_grid = POS_GRID if encoder != "vitt" else 4
         self.encoder = encoder
         self.dtype = dtype
+        self.grad_checkpoint = grad_checkpoint
         self.patch_embed = PatchEmbed(dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         # In the checkpoints; unused at inference.
@@ -213,8 +219,11 @@ class DinoViT(nn.Module):
         x = x + interpolate_pos_embed(self.pos_embed, gh, gw).to(self.dtype)
 
         outputs: dict[int, torch.Tensor] = {}
+        remat = (self.grad_checkpoint and self.training
+                 and torch.is_grad_enabled())
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat \
+                else block(x)
             if i in taps:
                 outputs[i] = x
         results = []

@@ -1,0 +1,225 @@
+"""Training augmentations on the device (torchvision semantics).
+
+After the bicubic resize to the model size: RandomHorizontalFlip,
+ColorJitter(brightness .2, contrast .2, saturation .1, hue .2) with its
+four ops in a random order per image, RandomAffine(degrees 0, translate
+(.1, .1), scale (.1, .9), NEAREST, fill 0), then ImageNet normalisation.
+The depth target gets none of them: the geometric augmentations touch the
+image only, a property of the reference kept as it is.
+
+The random draws are made in one place, ``draw_augment_params``, from a
+``torch.Generator`` on the CPU (so no draw waits for the card), and the
+ops take them as explicit values. A test can therefore feed the factors
+that another framework's random stream drew. The ops run per image, on
+whatever device the images lie on.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+# Order of the colour ops, as numbered in ``AugmentParams.order``.
+COLOR_OPS = ("brightness", "contrast", "saturation", "hue")
+
+
+class AugmentConfig(NamedTuple):
+    hflip_prob: float = 0.5
+    brightness: float = 0.2
+    contrast: float = 0.2
+    saturation: float = 0.1
+    hue: float = 0.2
+    translate: tuple[float, float] = (0.1, 0.1)
+    scale_range: tuple[float, float] = (0.1, 0.9)
+
+
+class AugmentParams(NamedTuple):
+    """Per-image draws, (B, ...) CPU tensors."""
+    flip: torch.Tensor      # (B,) bool
+    factors: torch.Tensor   # (B, 4) f32: brightness, contrast, saturation, hue
+    order: torch.Tensor     # (B, 4) int64: a permutation of COLOR_OPS
+    translate: torch.Tensor  # (B, 2) f32: (tx, ty) in pixels, rounded
+    scale: torch.Tensor     # (B,) f32
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float
+             ) -> torch.Tensor:
+    return lo + (hi - lo) * torch.rand(shape, generator=gen)
+
+
+def draw_augment_params(gen: torch.Generator, batch: int,
+                        image_hw: tuple[int, int],
+                        cfg: AugmentConfig = AugmentConfig()
+                        ) -> AugmentParams:
+    """Every random value of one batch's augmentation, drawn from ``gen``
+    (a CPU generator)."""
+    h, w = image_hw
+    flip = torch.rand(batch, generator=gen) < cfg.hflip_prob
+    factors = torch.stack([
+        _uniform(gen, batch, 1 - cfg.brightness, 1 + cfg.brightness),
+        _uniform(gen, batch, 1 - cfg.contrast, 1 + cfg.contrast),
+        _uniform(gen, batch, 1 - cfg.saturation, 1 + cfg.saturation),
+        _uniform(gen, batch, -cfg.hue, cfg.hue)], dim=1)
+    order = torch.stack([torch.randperm(4, generator=gen)
+                         for _ in range(batch)])
+    max_dx, max_dy = cfg.translate[0] * w, cfg.translate[1] * h
+    translate = torch.round(torch.stack([
+        _uniform(gen, batch, -max_dx, max_dx),
+        _uniform(gen, batch, -max_dy, max_dy)], dim=1))
+    scale = _uniform(gen, batch, cfg.scale_range[0], cfg.scale_range[1])
+    return AugmentParams(flip, factors, order, translate, scale)
+
+
+# --------------------------- colour ops (HWC, [0,1]) ------------------------
+
+
+def _rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    # torchvision rgb_to_grayscale weights
+    w = torch.tensor([0.2989, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return torch.sum(img * w, dim=-1, keepdim=True)
+
+
+def adjust_brightness(img: torch.Tensor, factor) -> torch.Tensor:
+    return torch.clamp(img * factor, 0.0, 1.0)
+
+
+def adjust_contrast(img: torch.Tensor, factor) -> torch.Tensor:
+    mean = torch.mean(_rgb_to_gray(img))
+    return torch.clamp(img * factor + (1.0 - factor) * mean, 0.0, 1.0)
+
+
+def adjust_saturation(img: torch.Tensor, factor) -> torch.Tensor:
+    gray = _rgb_to_gray(img)
+    return torch.clamp(img * factor + (1.0 - factor) * gray, 0.0, 1.0)
+
+
+def _rgb_to_hsv(img: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    v = maxc
+    delta = maxc - minc
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, delta / torch.clamp(maxc, min=1e-12), zero)
+    safe_delta = torch.where(delta > 0, delta, torch.ones_like(delta))
+    rc = (maxc - r) / safe_delta
+    gc = (maxc - g) / safe_delta
+    bc = (maxc - b) / safe_delta
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, h, zero)
+    h = torch.remainder(h / 6.0, 1.0)
+    return h, s, v
+
+
+def _hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor
+                ) -> torch.Tensor:
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def select(*choices: torch.Tensor) -> torch.Tensor:
+        out = choices[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, choices[k], out)
+        return out
+
+    return torch.stack([select(v, q, p, p, t, v), select(t, v, v, q, p, p),
+                        select(p, p, t, v, v, q)], dim=-1)
+
+
+def adjust_hue(img: torch.Tensor, shift) -> torch.Tensor:
+    h, s, v = _rgb_to_hsv(torch.clamp(img, 0.0, 1.0))
+    return _hsv_to_rgb(torch.remainder(h + shift, 1.0), s, v)
+
+
+_COLOR_FNS = (adjust_brightness, adjust_contrast, adjust_saturation,
+              adjust_hue)
+
+
+def color_jitter(img: torch.Tensor, factors, order) -> torch.Tensor:
+    """ColorJitter on one HWC image: ``factors`` (brightness, contrast,
+    saturation, hue shift), applied in ``order`` (indices of COLOR_OPS)."""
+    for op in order:
+        img = _COLOR_FNS[int(op)](img, factors[int(op)])
+    return img
+
+
+# ------------------------------ geometric ops -------------------------------
+
+
+def random_affine(img: torch.Tensor, translate, scale) -> torch.Tensor:
+    """RandomAffine(degrees=0) on one HWC image with the drawn (tx, ty)
+    and scale: NEAREST sampling of the inverse map about the centre, fill
+    0 outside."""
+    h, w = img.shape[0], img.shape[1]
+    f32 = np.float32
+
+    # The map is separable: one source index per output row and column,
+    # computed on the host in f32 (true division, round half to even) as
+    # the JAX package computes it.
+    def axis(n: int, shift: float) -> tuple[torch.Tensor, np.ndarray]:
+        c = f32((n - 1) * 0.5)
+        src = np.round((np.arange(n, dtype=f32) - c - f32(shift))
+                       / f32(scale) + c).astype(np.int64)
+        valid = (src >= 0) & (src < n)
+        return (torch.from_numpy(np.clip(src, 0, n - 1)).to(img.device),
+                valid)
+
+    iy, valid_y = axis(h, translate[1])
+    ix, valid_x = axis(w, translate[0])
+    valid = torch.from_numpy(valid_y[:, None] & valid_x[None, :]).to(
+        img.device)
+    out = img.index_select(0, iy).index_select(1, ix)
+    return torch.where(valid[..., None], out, torch.zeros_like(out))
+
+
+# ------------------------------ batch pipeline ------------------------------
+
+
+def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
+    mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
+    std = torch.as_tensor(IMAGENET_STD, device=img.device)
+    return (img - mean) / std
+
+
+def apply_augment(images: torch.Tensor, params: AugmentParams
+                  ) -> torch.Tensor:
+    """images: (B, H, W, 3) in [0, 1]. Flip, colour jitter and affine per
+    image with the given draws, then ImageNet normalisation."""
+    flips = params.flip.tolist()
+    factors = params.factors.tolist()
+    orders = params.order.tolist()
+    out = []
+    for i, img in enumerate(images):
+        if flips[i]:
+            img = img.flip(1)
+        img = color_jitter(img, factors[i], orders[i])
+        img = random_affine(img, params.translate[i].tolist(),
+                            params.scale[i].item())
+        out.append(img)
+    return normalize_imagenet(torch.stack(out))
+
+
+def augment_batch(images: torch.Tensor, gen: torch.Generator,
+                  cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
+    """images: (B, H, W, 3) in [0, 1] (already resized). Returns the
+    normalised, augmented batch; the draws come from ``gen``."""
+    params = draw_augment_params(gen, images.shape[0],
+                                 (images.shape[1], images.shape[2]), cfg)
+    return apply_augment(images, params)
+
+
+def preprocess_eval(images: torch.Tensor) -> torch.Tensor:
+    """Eval-path preprocessing: normalise only (resize happens upstream)."""
+    return normalize_imagenet(images)

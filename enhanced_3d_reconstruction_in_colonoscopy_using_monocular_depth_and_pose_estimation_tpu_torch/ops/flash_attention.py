@@ -1,5 +1,6 @@
-"""Flash-attention forward for the ViT encoder: kernel K1 and its plain
-PyTorch version.
+"""Flash attention for the ViT encoder: kernel K1 (forward), kernels K2 and
+K3 (backward), their plain PyTorch versions, and the autograd Function
+that ties them together.
 
 ``flash_attention`` takes (B, N, H, D) q, k, v and returns
 ``(o (B, N, H, D), lse (B, H, N) f32)``. On CUDA tensors it launches the
@@ -8,12 +9,26 @@ hand-written Hopper kernel in ``csrc/flash_attn_fwd.cu`` (bf16, D in
 projection go in without copies) or raises; on CPU tensors it computes
 ``flash_attention_reference``. The kernel masks the ragged edges by index,
 so no caller pads the token axis.
+
+The backward has two schedules, as in the JAX package: K2
+(``flash_attention_bwd_fused``, one pass over key blocks, dQ summed across
+blocks with f32 atomics) and K3 (``flash_attention_bwd_split``, a dQ pass
+and a dK/dV pass, deterministic). ``_BWD_FUSED`` picks between them from
+the same ``E3D_FLASH_BWD_FUSED`` knob, read at import. Both live in
+``csrc/flash_attn_bwd.cu``; their plain version is
+``flash_attention_bwd_reference``.
+
+``flash_attention_qkv`` is the differentiable entry: it takes the packed
+(B, N, 3, H, D) projection, runs K1 on its three views, and its backward
+writes dq, dk and dv straight into the three views of one packed dqkv, so
+the backward of the projection gets one contiguous gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -21,18 +36,58 @@ from ..utils import cbuild
 
 HEAD_DIMS = (32, 64)
 _LIB_NAME = "flash_attn_fwd"
+_BWD_LIB_NAME = "flash_attn_bwd"
+# The backward schedule: K2 (fused) unless E3D_FLASH_BWD_FUSED=0 asks for
+# K3 (split), the knob of the JAX package's ops/flash_attention.py.
+_BWD_FUSED = os.environ.get("E3D_FLASH_BWD_FUSED", "1") == "1"
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or f64 if it is f64: the plain versions' working type."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain attention over (B, N, H, D), softmax in f32 as the JAX
-    package's ``mha_xla``: returns (o in q.dtype, lse (B, H, N) f32)."""
+    package's ``mha_xla``: returns (o in q.dtype, lse (B, H, N) f32; f64
+    for f64 inputs)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    logits = torch.einsum("bnhd,bmhd->bhnm", _wide(q), _wide(k)) * scale
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhnm,bmhd->bnhd", probs, v), lse
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B, N, H, D) -> (B, H, N) contiguous
+    (computed outside the kernel, as the JAX package leaves it to XLA)."""
+    return (_wide(do) * _wide(o)).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain backward of attention over (B, N, H, D), in f32 (f64 for f64
+    inputs) from the inputs as given, rounded to their dtype only at the
+    end:
+
+        P = exp(S scale - LSE),  dV = P^T dO,
+        dS = P (dO V^T - delta), delta = rowsum(dO O),
+        dQ = dS K scale,         dK = dS^T Q scale."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = (_wide(x) for x in (q, k, v, do))
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    ds = p * (dp - attention_delta(o, do)[..., None])
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _bind(lib: ctypes.CDLL):
@@ -45,8 +100,25 @@ def _bind(lib: ctypes.CDLL):
     return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _bind_bwd(lib: ctypes.CDLL):
+    fn = lib.e3d_flash_attn_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _layout_ok(x: torch.Tensor) -> bool:
+    """16-byte row chunks: unit stride on D, other strides and the base
+    address aligned to 8 elements."""
+    return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _check(q: torch.Tensor, *others: tuple[str, torch.Tensor]) -> None:
+    for name, x in (("q", q), *others):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"flash_attention: {name} on {x.device}; q, k, "
                              "v must lie on one CUDA device (or all on the "
@@ -58,10 +130,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name} has shape "
                              f"{tuple(x.shape)}; expected (B, N, H, D) equal "
                              f"to q's {tuple(q.shape)}")
-        # 16-byte row chunks: unit stride on D, other strides and the
-        # base address aligned to 8 elements.
-        if (x.stride(3) != 1 or any(s % 8 for s in x.stride()[:3])
-                or x.data_ptr() % 16):
+        if not _layout_ok(x):
             raise ValueError(f"flash_attention: {name} layout (strides "
                              f"{x.stride()}) needs unit stride on D and "
                              "16-byte aligned rows")
@@ -77,10 +146,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Attention over (B, N, H, D): (o (B, N, H, D), lse (B, H, N) f32).
 
     CPU tensors take the plain version; CUDA tensors launch kernel K1 and
-    add one to ``flash_attention.launches``."""
+    add one to ``flash_attention.launches``. Not differentiable, so it
+    raises, on every device alike, when autograd would record it: train
+    through ``flash_attention_qkv``."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention is not differentiable (kernel "
+                           "K1 writes outside autograd); call "
+                           "flash_attention_qkv on the packed projection, "
+                           "or run under torch.no_grad()")
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_reference(q, k, v)
-    _check(q, k, v)
+    _check(q, ("k", k), ("v", v))
     fn = _bind(cbuild.load(_LIB_NAME))
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=q.device)
@@ -98,3 +174,108 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 flash_attention.launches = 0
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool) -> None:
+    """Checks and one call of ``e3d_flash_attn_bwd`` (K2 or K3)."""
+    # dO comes from autograd and may be non-contiguous (or broadcast, with
+    # a zero stride, after a sum); a layout the kernel does not read is
+    # copied once here. That is a copy, not a fallback: the kernel runs.
+    if do.device == q.device and do.dim() == 4 and not _layout_ok(do):
+        do = do.contiguous()
+    _check(q, ("k", k), ("v", v), ("o", o), ("dO", do), ("dk", dk),
+           ("dv", dv))
+    b, n, h, d = q.shape
+    if fused:
+        if dq.dtype != torch.float32 or not dq.is_contiguous() \
+                or dq.shape != q.shape or dq.device != q.device:
+            raise ValueError("flash_attention: K2 adds dq into a contiguous "
+                             "(B, N, H, D) float32 scratch on q's device")
+    else:
+        _check(q, ("dq", dq))
+    if (lse.shape != (b, h, n) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention: lse must be a contiguous "
+                         f"(B, H, N) = {(b, h, n)} float32 tensor on q's "
+                         f"device, got {tuple(lse.shape)} {lse.dtype}")
+    delta = attention_delta(o, do)
+    strides = (ctypes.c_longlong * 21)(*(
+        s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]))
+    fn = _bind_bwd(cbuild.load(_BWD_LIB_NAME))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, n, h, d, strides,
+                 int(fused), 1.0 / math.sqrt(d), stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
+
+
+def flash_attention_bwd_fused(q, k, v, o, lse, do, dq, dk, dv) -> None:
+    """Kernel K2: writes dk and dv (bf16 (B, N, H, D) views allowed) and
+    dq, which may be a bf16 view too: the kernel sums dq into an f32
+    scratch with atomics, and a cast pass writes it into ``dq``. Adds one
+    to ``flash_attention_bwd_fused.launches``."""
+    scratch = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd(q, k, v, o, lse, do, scratch, dk, dv, fused=True)
+    flash_attention_bwd_fused.launches += 1
+    dq.copy_(scratch)
+
+
+flash_attention_bwd_fused.launches = 0
+
+
+def flash_attention_bwd_split(q, k, v, o, lse, do, dq, dk, dv) -> None:
+    """Kernel K3: a dQ kernel over query blocks and a dK/dV kernel over key
+    blocks, writing straight into the bf16 (B, N, H, D) views dq, dk, dv.
+    Deterministic. Adds one to ``flash_attention_bwd_split.launches``."""
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused=False)
+    flash_attention_bwd_split.launches += 1
+
+
+flash_attention_bwd_split.launches = 0
+
+
+class FlashAttentionQKV(torch.autograd.Function):
+    """Attention of a packed (B, N, 3, H, D) projection, differentiable.
+
+    Forward: K1 on the three strided views (the plain version on the CPU);
+    returns (o, lse) and saves (qkv, o, lse). Backward: one packed dqkv
+    whose three views K2 (or K3) fill, or the plain backward on the CPU.
+    Only ``o`` is differentiated, as in the JAX package's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor):
+        o, lse = flash_attention(*qkv.unbind(2))
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor, _dlse):
+        qkv, o, lse = ctx.saved_tensors
+        return flash_attention_qkv_backward(qkv, o, lse, do)
+
+
+def flash_attention_qkv_backward(qkv: torch.Tensor, o: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor
+                                 ) -> torch.Tensor:
+    """dqkv (B, N, 3, H, D) of ``FlashAttentionQKV``: the plain backward
+    for CPU tensors; K2, or K3 when ``_BWD_FUSED`` is off, for CUDA ones."""
+    q, k, v = qkv.unbind(2)
+    if qkv.device.type == "cpu":
+        return torch.stack(
+            flash_attention_bwd_reference(q, k, v, o, lse, do), dim=2)
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    dq, dk, dv = dqkv.unbind(2)
+    bwd = flash_attention_bwd_fused if _BWD_FUSED else \
+        flash_attention_bwd_split
+    bwd(q, k, v, o, lse, do, dq, dk, dv)
+    return dqkv
+
+
+def flash_attention_qkv(qkv: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention of the packed (B, N, 3, H, D) projection:
+    returns o (B, N, H, D)."""
+    return FlashAttentionQKV.apply(qkv)[0]

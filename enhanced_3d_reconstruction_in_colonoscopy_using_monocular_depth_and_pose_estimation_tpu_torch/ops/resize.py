@@ -111,9 +111,12 @@ def _align_corners_matrix(in_size: int, out_size: int, method: str
 @functools.lru_cache(maxsize=256)
 def _device_matrix(make_matrix, in_size: int, out_size: int, method: str,
                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A resize matrix on the device, uploaded once per shape."""
-    return torch.from_numpy(make_matrix(in_size, out_size, method)).to(
-        device=device, dtype=dtype)
+    """A resize matrix on the device, uploaded once per shape. Made outside
+    inference mode even when first asked for inside it (serving): a cached
+    inference tensor could not be saved for a later training backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(make_matrix(in_size, out_size, method)).to(
+            device=device, dtype=dtype)
 
 
 def _to_hw_last(x: torch.Tensor, channels_last: bool) -> torch.Tensor:

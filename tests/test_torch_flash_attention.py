@@ -79,13 +79,18 @@ def test_strided_views_match_contiguous():
 
 
 def test_force_plain_hook_restores():
-    q = torch.randn(1, 9, 2, 32)
+    gen = torch.Generator().manual_seed(0)
+    x, w_qkv, b_qkv, w_proj, b_proj = (
+        torch.randn(s, generator=gen) * 0.1
+        for s in ((1, 9, 64), (192, 64), (192,), (64, 64), (64,)))
     tattn.set_force_plain(True)
     try:
-        forced = tattn.multi_head_attention(q, q, q)
+        forced = tattn.qkv_self_attention(x, w_qkv, b_qkv, w_proj, b_proj, 2)
     finally:
         tattn.set_force_plain(False)
-    torch.testing.assert_close(forced, tattn.multi_head_attention(q, q, q))
+    assert not tattn._FORCE_PLAIN
+    torch.testing.assert_close(forced, tattn.qkv_self_attention(
+        x, w_qkv, b_qkv, w_proj, b_proj, 2))
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -95,6 +100,18 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     q = torch.empty(1, 16, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_forward_refuses_to_be_recorded_by_autograd(device):
+    """K1 writes outside autograd, so a call that autograd would record
+    raises on every device rather than return a graph-less output."""
+    q = torch.zeros(1, 16, 2, 64, device=device)
+    with pytest.raises(RuntimeError, match="flash_attention_qkv"):
+        flash_attention(q, q, q.requires_grad_(True))
+    with torch.no_grad():
+        if device == "cpu":
+            assert flash_attention(q, q, q)[0].shape == q.shape
 
 
 def test_cuda_request_raises_without_a_card():

@@ -9,6 +9,16 @@ PORT = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_"
 JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
                "depth_and_pose_estimation_tpu")
 
+# Every module of the port; the probe fails if one is missing or leaks.
+MODULES = (
+    "core.checkpoint", "core.debug", "core.device", "core.dtypes",
+    "core.logging", "core.metrics", "data.preprocess",
+    "evaluation.depth_metrics", "losses.silog", "models.convert",
+    "models.depth_anything", "models.dinov2", "models.dpt", "ops.attention",
+    "ops.augment", "ops.flash_attention", "ops.resize", "serving.engine",
+    "train.depth_task", "train.loop", "train.optim", "utils.cbuild",
+)
+
 _PROBE = f"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None    # any "import jax" now raises ImportError
@@ -22,7 +32,8 @@ leaked = sorted(n for n in sys.modules
                 or n.startswith(("{JAX_PACKAGE}.", "e3d_tpu.")))
 print(len(names), leaked)
 assert not leaked, leaked
-assert len(names) >= 12, names
+missing = sorted(set("{PORT}." + m for m in {MODULES!r}) - set(names))
+assert not missing, missing
 """
 
 

@@ -11,7 +11,9 @@ Tolerances are those of ``chip_smoke.py``: O is bf16 in both versions,
 and the kernel rounds the unnormalised probabilities to bf16 before PV
 where the plain version rounds the normalised ones, so a few bf16 ulps at
 |o| <= 1 (2e-2); LSE is f32 in both and differs only in summation order
-(1e-3).
+(1e-3). The backward kernels round P and dS to bf16 before the products
+that consume them, the plain backward computes in f32 from the same bf16
+inputs: their largest difference may be 2e-2 of the largest |gradient|.
 """
 
 import pytest
@@ -19,8 +21,11 @@ import torch
 
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.models import depth_anything as tda
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import attention as tattn
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import flash_attention as fa
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference)
+
+BWD_TOL = 2e-2
 
 
 @pytest.fixture
@@ -62,6 +67,10 @@ def test_kernel_rejects_what_it_does_not_take(card):
         flash_attention(*(x[..., :48] for x in (q, k, v)))
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention(q, k.cpu(), v)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention_qkv"):
+        flash_attention(torch.zeros_like(q, requires_grad=True), k, v)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.cuda
@@ -87,3 +96,202 @@ def test_vitt_model_on_kernel_matches_plain_attention(card):
     diff = (kernel - plain).abs()
     # vitt at random weights: 4 bf16 blocks, depth range 20 m.
     assert diff.max().item() <= 0.5 and diff.mean().item() <= 0.05
+
+
+def _bwd_case(b, n, h, d, seed, card):
+    """A packed qkv, the K1 forward's o and lse, and a random dO."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=card,
+                      dtype=torch.bfloat16)
+    o, lse = flash_attention(*qkv.unbind(2))
+    do = torch.randn((b, n, h, d), generator=gen, device=card,
+                     dtype=torch.bfloat16)
+    return qkv, o, lse, do
+
+
+def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["K2", "K3"])
+@pytest.mark.parametrize("shape", [(3, 130, 5, 32), (2, 128, 4, 64),
+                                   (1, 37, 2, 64), (2, 200, 3, 64)])
+def test_backward_kernels_match_plain(shape, fused, card, monkeypatch):
+    monkeypatch.setattr(fa, "_BWD_FUSED", fused)
+    qkv, o, lse, do = _bwd_case(*shape, seed=sum(shape), card=card)
+    counter = (fa.flash_attention_bwd_fused if fused
+               else fa.flash_attention_bwd_split)
+    before = counter.launches
+    dqkv = fa.flash_attention_qkv_backward(qkv, o, lse, do)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
+    ref = fa.flash_attention_bwd_reference(*qkv.unbind(2), o, lse, do)
+    for name, got, want in zip("qkv", dqkv.unbind(2), ref):
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got, want) <= BWD_TOL, (name, _rel_err(got, want))
+
+
+@pytest.mark.cuda
+def test_split_backward_is_deterministic(card, monkeypatch):
+    monkeypatch.setattr(fa, "_BWD_FUSED", False)
+    qkv, o, lse, do = _bwd_case(2, 130, 3, 64, seed=5, card=card)
+    a = fa.flash_attention_qkv_backward(qkv, o, lse, do)
+    b = fa.flash_attention_qkv_backward(qkv, o, lse, do)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_takes_a_non_contiguous_grad(card, monkeypatch):
+    """dO with a transposed layout (and a broadcast one) is read or copied,
+    never refused, and gives the gradient of the contiguous dO."""
+    monkeypatch.setattr(fa, "_BWD_FUSED", True)
+    qkv, o, lse, do = _bwd_case(1, 70, 2, 64, seed=3, card=card)
+    want = fa.flash_attention_qkv_backward(qkv, o, lse, do)
+    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+    got = fa.flash_attention_qkv_backward(qkv, o, lse, do_t)
+    assert _rel_err(got, want) <= 1e-2
+    row = do[:, :1].expand_as(do)
+    got = fa.flash_attention_qkv_backward(qkv, o, lse, row)
+    want = fa.flash_attention_qkv_backward(qkv, o, lse, row.contiguous())
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_backward_rejects_what_it_does_not_take(card):
+    qkv, o, lse, do = _bwd_case(1, 16, 2, 64, seed=0, card=card)
+    q, k, v = qkv.unbind(2)
+    dq, dk, dv = torch.empty_like(qkv).unbind(2)
+    scratch = torch.zeros(q.shape, device=card)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_bwd_split(q, k, v, o, lse, do.half(), dq, dk, dv)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_bwd_fused(q, k, v, o, lse, do.cpu(), dq, dk, dv)
+    misaligned = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                             device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="layout"):
+        fa.flash_attention_bwd_split(q, k, v, o, lse, do, misaligned, dk,
+                                     dv)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_split(q, k, v, o, lse.transpose(1, 2), do,
+                                     dq, dk, dv)
+    with pytest.raises(ValueError, match="scratch"):
+        fa._launch_bwd(q, k, v, o, lse, do, scratch.bfloat16(), dk, dv,
+                       fused=True)
+
+
+def _vitt_grads(card, plain: bool, dtype=torch.bfloat16):
+    """Gradients of a SiLog-like loss of the vitt model on the card."""
+    model = tda.build_depth_model("vitt", dtype=dtype, device=card,
+                                  seed=0).train()
+    gen = torch.Generator(device=card).manual_seed(2)
+    img = torch.randn((2, 56, 70, 3), generator=gen, device=card)
+    tattn.set_force_plain(plain)
+    try:
+        pred = model(img)
+    finally:
+        tattn.set_force_plain(False)
+    loss = torch.log(pred + 1e-3).square().mean()
+    loss.backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_every_qkv_parameter_gets_a_gradient_on_the_kernels(card):
+    """The attention backward goes through K2: every attn.qkv weight and
+    bias gets a finite, non-zero gradient (a non-differentiable kernel
+    call would leave them at None)."""
+    before = fa.flash_attention_bwd_fused.launches
+    grads = _vitt_grads(card, plain=False)
+    assert fa.flash_attention_bwd_fused.launches == before + 4
+    qkv = {n: g for n, g in grads.items() if ".attn.qkv." in n}
+    assert len(qkv) == 8
+    for name, g in qkv.items():
+        assert g is not None, name
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+
+
+@pytest.mark.cuda
+def test_vitt_gradients_on_kernels_match_plain_attention(card):
+    """The flattened gradient of the model on K1/K2 against the same model
+    on the plain attention, both bf16, with the plain bf16 gradient's own
+    distance from f32 as the yardstick."""
+    def flat(grads):
+        return torch.cat([g.flatten() for n, g in sorted(grads.items())
+                          if g is not None and "mask_token" not in n])
+
+    kernel = flat(_vitt_grads(card, plain=False))
+    plain = flat(_vitt_grads(card, plain=True))
+    f32 = flat(_vitt_grads(card, plain=True, dtype=torch.float32))
+    d_kf = (kernel - f32).norm() / f32.norm()
+    d_pf = (plain - f32).norm() / f32.norm()
+    cos = torch.nn.functional.cosine_similarity(kernel, f32, dim=0)
+    assert d_kf <= 1.5 * d_pf + 1e-3, (d_kf.item(), d_pf.item())
+    assert cos >= 0.99, cos.item()
+
+
+def _vitt_train(card, plain: bool, fused: bool = True):
+    """Two optimizer steps of a vitt DepthTask on the card (bf16, gradient
+    checkpointing, accum 2): losses, final parameters, launch counts."""
+    import numpy as np
+
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train.depth_task import DepthTask
+
+    rng = np.random.default_rng(4)
+    images = rng.normal(size=(2, 2, 2, 56, 70, 3)).astype(np.float32)
+    depths = rng.uniform(0.5, 18.0, (2, 2, 2, 56, 70)).astype(np.float32)
+    task = DepthTask("vitt", encoder_lr=1e-4, decoder_lr=1e-4,
+                     div_factor=25.0, total_steps=2, grad_accum=2,
+                     device=card)
+    state = task.init_state(0)
+    counts = (fa.flash_attention.launches,
+              fa.flash_attention_bwd_fused.launches,
+              fa.flash_attention_bwd_split.launches)
+    tattn.set_force_plain(plain)
+    fa._BWD_FUSED, knob = fused, fa._BWD_FUSED
+    try:
+        losses = []
+        for s in range(2):
+            state, m = task.train_step(state, {"image": images[s],
+                                               "depth": depths[s]})
+            losses.append(m["loss"].item())
+    finally:
+        tattn.set_force_plain(False)
+        fa._BWD_FUSED = knob
+    launches = tuple(after - before for after, before in zip(
+        (fa.flash_attention.launches, fa.flash_attention_bwd_fused.launches,
+         fa.flash_attention_bwd_split.launches), counts))
+    return losses, state.model.state_dict(), launches
+
+
+def _vitt_train_init(card):
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train.depth_task import DepthTask
+
+    return DepthTask("vitt", device=card).init_state(0).model.state_dict()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["K2", "K3"])
+def test_vitt_train_step_on_kernels_matches_plain_attention(card, fused):
+    """Two DepthTask steps on K1 and K2 (or K3) against the same steps on
+    the plain attention: 4 blocks x 2 chunks x 2 steps = 16 backward
+    launches, twice as many K1 (forward and recompute); losses within bf16
+    rounding (5e-2 relative at random weights); parameters finite and
+    moved by both. (The gradients themselves are compared in
+    ``test_vitt_gradients_on_kernels_match_plain_attention``: Adam's
+    sign-like first steps would hide their difference here.)"""
+    losses, params, launches = _vitt_train(card, plain=False, fused=fused)
+    assert launches == ((32, 16, 0) if fused else (32, 0, 16))
+    p_losses, p_params, p_launches = _vitt_train(card, plain=True)
+    assert p_launches == (0, 0, 0)
+    assert all(torch.isfinite(torch.tensor(losses)))
+    for a, b in zip(losses, p_losses):
+        assert abs(a - b) <= 5e-2 * abs(b), (losses, p_losses)
+    init = _vitt_train_init(card)
+    for k, v in params.items():
+        assert torch.isfinite(v).all(), k
+    moved = [k for k in params if not torch.equal(params[k], init[k])]
+    p_moved = [k for k in params if not torch.equal(p_params[k], init[k])]
+    assert moved == p_moved and len(moved) >= len(params) - 1
