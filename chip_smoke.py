@@ -5,15 +5,25 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-source, in parallel), holds each one against its plain PyTorch version on
-the card, and drives the port's two paths at vitl width with seeded random
-weights:
+It builds every CUDA kernel of the port from ``csrc/`` and the host media
+codecs from ``csrc/host/`` (one compiler per source, in parallel), holds
+each kernel against its plain PyTorch version on the card (K1, K2, K3;
+K4 and K5 also against K1, and K4's LSE through K2's backward; K6 at the
+decoder's five resizes), and drives the port's three paths at vitl width
+with seeded random weights:
 
 - serving: vitl DAv2 depth at 518 px, batch 8, through
   ``DepthServingEngine``; checks that the served batches went through K1,
   holds one batch against the same model on the plain attention, and
   prints timings and a ``torch.profiler`` breakdown of one batch;
+- video: ``cli.video_depth.main`` on a 48-frame 475x475 MJPEG AVI, once
+  per configuration of the JAX package's knobs (default: K1;
+  ``E3D_PALLAS_RESIZE`` + ``E3D_FLASH_PAIR``: K4 and K6;
+  ``E3D_FLASH_PIPE`` and ``E3D_FLASH_HLOOP``: K5), with the launches held
+  to the batches the engine ran, the entry point's 48 depth maps against
+  the plain f32 model, every output frame against the rendering of its
+  depth map, and once more through ``python -m`` with the knobs in the
+  environment;
 - training: vitl depth fine-tuning at 518 px through ``fit_depth``
   (16-mixed, gradient checkpointing, microbatch 8, grad-accum 4, four
   optimizer steps, validation), with the attention backward on K2 (and
@@ -45,10 +55,19 @@ FRAME_HW = (475, 475)   # SimCol frame size: 518 px network input, N = 1370
 BATCH = 8
 N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
-LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd"]
-JAX_FLASH = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
-             "depth_and_pose_estimation_tpu/ops/flash_attention.py")
+LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize",
+             "host/jpegcodec", "host/container"]
+JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
+           "depth_and_pose_estimation_tpu")
+JAX_FLASH = f"{JAX_PKG}/ops/flash_attention.py"
 FLAGSHIP = (8, 1370, 16, 64)  # vitl at 518 px: B, N, H, D
+# The decoder's align-corners resizes at vitl, batch 8, 518 px (NCHW):
+# the four fusion upsamples at 256 channels, then the head's at 128.
+DPT_RESIZES = [((8, 256, 19, 19), (37, 37)), ((8, 256, 37, 37), (74, 74)),
+               ((8, 256, 74, 74), (148, 148)),
+               ((8, 256, 148, 148), (296, 296)),
+               ((8, 128, 296, 296), (518, 518))]
+VIDEO_FRAMES = 6 * BATCH
 # Training: 14 microbatches of 8 frames, grad-accum 4 (the trainer's
 # default), so 4 optimizer steps, the last a trailing group of 2.
 TRAIN_MICROBATCHES = 14
@@ -100,11 +119,20 @@ def phase_build() -> None:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
     for name in LIBRARIES:
         for line in cbuild.build_log(name).splitlines():
-            entry = re.search(r"(flash_attn_\w+?_kernel)ILi(\d+)E(?:Lb(\d)E)?",
-                              line)
-            if "Compiling entry" in line and entry:
-                args = ", ".join(a for a in entry.groups()[1:] if a)
-                print(f"  ptxas {name}: {entry.group(1)}<{args}>")
+            flash = re.search(
+                r"(?<=\d)(flash_attn_\w+?_kernel)ILi(\d+)E(?:Lb(\d)E)?", line)
+            lerp = re.search(
+                r"(?<=\d)(lerp_resize\w*?_kernel)I(13__nv_bfloat16|f)"
+                r"(?:Li(\d+)E)?E",
+                line)
+            if "Compiling entry" in line and flash:
+                args = ", ".join(a for a in flash.groups()[1:] if a)
+                print(f"  ptxas {name}: {flash.group(1)}<{args}>")
+            elif "Compiling entry" in line and lerp:
+                args = "bf16" if lerp.group(2).endswith("bfloat16") else "f32"
+                if lerp.group(3):
+                    args += f", {lerp.group(3)}"
+                print(f"  ptxas {name}: {lerp.group(1)}<{args}>")
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas:   {line.strip()}")
 
@@ -120,40 +148,47 @@ def _attention_case(b: int, n: int, h: int, d: int, seed: int):
     return qkv.unbind(2)
 
 
-def phase_k1() -> dict:
-    """K1 against its plain version; times at the flagship shape."""
+def phase_forward(label: str, name: str, line: int, call) -> dict:
+    """A forward kernel (K1, K4, or K5 in one schedule) against the plain
+    version at the flagship shape, at D 32 and at a small ragged N; K4 and
+    K5 also against K1; times at the flagship shape beside the plain
+    version, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
-    flash_attention = fa.flash_attention
-    flash_attention_reference = fa.flash_attention_reference
-
-    # bf16 output: the kernel rounds unnormalised P to bf16 before PV, the
+    # bf16 output: the kernels round unnormalised P to bf16 before PV, the
     # plain version rounds normalised P; both round O to bf16. LSE is f32
     # in both, differing only in summation order.
     o_tol, lse_tol = 2e-2, 1e-3
-    flagship = (8, 1370, 16, 64)
     errs = {}
-    for shape, seed in ((flagship, 0), ((3, 130, 5, 32), 1)):
+    for shape, seed in ((FLAGSHIP, 0), ((2, 130, 5, 32), 1),
+                        ((2, 50, 4, 64), 2)):
         q, k, v = _attention_case(*shape, seed)
-        o, lse = flash_attention(q, k, v)
+        o, lse = call(q, k, v)
         torch.cuda.synchronize()
-        ro, rlse = flash_attention_reference(q, k, v)
+        ro, rlse = fa.flash_attention_reference(q, k, v)
         eo = (o.float() - ro.float()).abs().max().item()
         el = (lse - rlse).abs().max().item()
-        print(f"K1 {shape}: max|dO| {eo:.3e} (tol {o_tol}), "
-              f"max|dLSE| {el:.3e} (tol {lse_tol})")
-        if not (eo <= o_tol and el <= lse_tol):
-            raise AssertionError(f"K1 disagrees with its plain version at "
-                                 f"{shape}")
+        msg = (f"{label} {shape}: max|dO| {eo:.3e} (tol {o_tol}), max|dLSE| "
+               f"{el:.3e} (tol {lse_tol})")
+        d1 = 0.0
+        if label != "K1":
+            o1, lse1 = fa.flash_attention(q, k, v)  # K1: the knobs are off
+            d1 = max((o.float() - o1.float()).abs().max().item(),
+                     (lse - lse1).abs().max().item())
+            msg += f"; max|{label} - K1| {d1:.3e}"
+        print(msg)
+        if not (eo <= o_tol and el <= lse_tol and d1 <= o_tol):
+            raise AssertionError(f"{label} disagrees with its plain version "
+                                 f"or K1 at {shape}")
         errs[shape] = max(eo, el)
 
-    b, n, h, d = flagship
-    q, k, v = _attention_case(*flagship, 0)
-    ms = _cuda_ms(lambda: flash_attention(q, k, v), iters=50)
-    plain_ms = _cuda_ms(lambda: flash_attention_reference(q, k, v), iters=5,
-                        warmup=1)
+    b, n, h, d = FLAGSHIP
+    q, k, v = _attention_case(*FLAGSHIP, 0)
+    ms = _cuda_ms(lambda: call(q, k, v), iters=50)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                        iters=5, warmup=1)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms = _cuda_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=50)
@@ -162,17 +197,117 @@ def phase_k1() -> dict:
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(flop_ms, byte_ms)
-    print(f"K1 {flagship}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"{label} {FLAGSHIP}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), "
           f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return {"name": "flash_attn_fwd", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": f"{PKG}/csrc/flash_attn_fwd.cu",
-            "replaces": f"{JAX_FLASH}:336",
-            "max_abs_err": errs[flagship], "ms": ms, "plain_ms": plain_ms,
+            "replaces": f"{JAX_FLASH}:{line}",
+            "max_abs_err": errs[FLAGSHIP], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": library_ms}
+
+
+def phase_pair_grads() -> None:
+    """One forward and backward through FlashAttentionQKV with K4 and K2,
+    against K1 and K2: K4's LSE feeds the backward unchanged."""
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    b, n, h, d = FLAGSHIP
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    do = torch.randn((b, n, h, d), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def dqkv(pair: bool):
+        fa._PAIR = pair
+        try:
+            x = qkv.clone().requires_grad_(True)
+            fa.flash_attention_qkv(x).backward(do)
+        finally:
+            fa._PAIR = False
+        return x.grad
+
+    before = fa.flash_attention_pair.launches
+    got = dqkv(True)
+    if fa.flash_attention_pair.launches != before + 1:
+        raise AssertionError("K4 + K2: the forward did not run on K4")
+    want = dqkv(False)
+    rel = {nm: ((g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+           for nm, g, w in zip(("dq", "dk", "dv"), got.unbind(2),
+                               want.unbind(2))}
+    print(f"K4 + K2 vs K1 + K2 {FLAGSHIP}: max|err| / max|ref| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in rel.items())
+          + f" (tol {BWD_TOL})")
+    if max(rel.values()) > BWD_TOL:
+        raise AssertionError("K4's LSE gives another gradient than K1's")
+
+
+def phase_k6() -> dict:
+    """K6 against its plain version at the decoder's five resizes (vitl,
+    batch 8, bf16, channels-last memory as the decoder hands it), at most
+    one bf16 ulp apart; per shape, K6's time beside F.interpolate's, the
+    matmul resize's and the bound. The record sums the five: one batch's
+    resizes."""
+    import torch
+    import torch.nn.functional as F
+
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_ms": 0.0,
+           "bound_ms": 0.0}
+    max_err = 0.0
+    for shape, out_hw in DPT_RESIZES:
+        gen = torch.Generator(device="cuda").manual_seed(shape[2])
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            y = rz.lerp_resize(x, out_hw)
+            torch.cuda.synchronize()
+            ref = rz.lerp_resize_reference(x, out_hw)
+        diff = (y.float() - ref.float()).abs()
+        ulp = ref.float().abs() * 2.0 ** -7  # one bf16 ulp, at most
+        off = int((diff > 0).sum())
+        diff_max = diff.max().item()
+        if not bool((diff <= ulp + 1e-30).all()) or not y.is_contiguous(
+                memory_format=torch.channels_last):
+            raise AssertionError(f"K6 {shape} -> {out_hw}: more than one "
+                                 "bf16 ulp from its plain version")
+        del diff, ulp, ref
+        max_err = max(max_err, diff_max)
+        t = {"ms": _cuda_ms(lambda: rz.lerp_resize(x, out_hw), iters=20),
+             "plain_ms": _cuda_ms(lambda: rz.lerp_resize_reference(
+                 x, out_hw), iters=5, warmup=1),
+             "library_ms": _cuda_ms(lambda: F.interpolate(
+                 x, size=out_hw, mode="bilinear", align_corners=True),
+                 iters=20),
+             "matmul_ms": _cuda_ms(lambda: rz._apply_separable(
+                 x, rz._align_corners_matrix, out_hw, "bilinear", False),
+                 iters=20),
+             "bound_ms": (x.numel() + y.numel()) * 2 / PEAK_BYTES * 1e3}
+        for key, val in t.items():
+            tot[key] += val
+        print(f"K6 {shape[1]} ch {shape[2]}->{out_hw[0]}: kernel "
+              f"{t['ms']:.4f} ms, F.interpolate {t['library_ms']:.4f} ms, "
+              f"matmul resize {t['matmul_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"(bytes); {off} of {y.numel()} elements differ from the "
+              f"plain version, max {diff_max:.3e}")
+        del x, y
+    print(f"K6 per batch (five resizes): kernel {tot['ms']:.4f} ms, "
+          f"F.interpolate {tot['library_ms']:.4f} ms, matmul resize "
+          f"{tot['matmul_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    return {"name": "lerp_resize", "route": "cuda",
+            "source": f"{PKG}/csrc/lerp_resize.cu",
+            "replaces": f"{JAX_PKG}/ops/resize.py:354",
+            "max_abs_err": max_err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes", "library_ms": tot["library_ms"],
+            "matmul_ms": tot["matmul_ms"]}
 
 
 def _frames(n: int, seed: int):
@@ -349,6 +484,274 @@ def phase_profile(model, frames) -> None:
     da._run_batched_u8(model, x, net_hw, FRAME_HW)
     _profiled(lambda: da._run_batched_u8(model, x, net_hw, FRAME_HW), 3,
               f"vitl batch {BATCH} forward")
+
+
+# ---------------------------------------------------------------- video
+
+# Per configuration of the JAX package's knobs: the module flags to set,
+# and the launches each batch the engine runs must make.
+VIDEO_CONFIGS = {
+    "default": ({}, {"K1": BLOCKS, "K4": 0, "K5": 0, "K6": 0}),
+    "PALLAS_RESIZE + PAIR": ({"_PAIR": True, "_PALLAS_RESIZE": True},
+                             {"K1": 0, "K4": BLOCKS, "K5": 0, "K6": 5}),
+    "PIPE": ({"_PIPE": True}, {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": 0}),
+    "HLOOP": ({"_HLOOP": True}, {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": 0}),
+}
+
+
+def _video_counts(fa, rz, zero: bool = False) -> dict[str, int]:
+    fns = {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_fused,
+           "K3": fa.flash_attention_bwd_split, "K4": fa.flash_attention_pair,
+           "K5": fa.flash_attention_heads, "K6": rz.lerp_resize}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+class _Knobs:
+    """Set the port's module flags of one configuration; restore them."""
+
+    def __init__(self, flags: dict):
+        self.mods = {"_PALLAS_RESIZE": importlib.import_module(
+            f"{PKG}.ops.resize")}
+        fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+        self.mods.update({k: fa for k in ("_PAIR", "_PIPE", "_HLOOP")})
+        self.flags = flags
+
+    def __enter__(self):
+        self.saved = {k: getattr(m, k) for k, m in self.mods.items()}
+        for k, m in self.mods.items():
+            setattr(m, k, self.flags.get(k, False))
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            setattr(m, k, self.saved[k])
+
+
+def _video_input(path: str, seed: int) -> list:
+    """A 475x475 MJPEG AVI of seeded frames (coarse colour blocks and
+    noise), written by the port's encoder at quality 90; returns the
+    frames as the port's decoder reads them back (RGB)."""
+    import numpy as np
+
+    native = importlib.import_module(f"{PKG}.media.native")
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (VIDEO_FRAMES, 16, 16, 3)).astype(np.float32)
+    big = coarse.repeat(30, axis=1).repeat(30, axis=2)[:, :FRAME_HW[0],
+                                                       :FRAME_HW[1]]
+    frames = np.clip(big + rng.normal(0.0, 8.0, big.shape), 0, 255
+                     ).astype(np.uint8)
+    with native.VideoWriter(path, FRAME_HW[1], FRAME_HW[0], fps=30.0) as w:
+        for f in frames:
+            w.write_rgb(f, quality=90)
+    with native.VideoReader(path) as r:
+        return [r.frame_rgb(i) for i in range(r.num_frames)]
+
+
+def _check_video(path: str, depths=None) -> None:
+    """``path`` holds the 48 frames at the frame size; with ``depths``,
+    each frame is, byte for byte, the JPEG (quality 90) of the Spectral
+    rendering of that frame's depth map."""
+    native = importlib.import_module(f"{PKG}.media.native")
+    colormap = importlib.import_module(f"{PKG}.media.colormap")
+    with native.VideoReader(path) as r:
+        shapes = {r.frame_rgb(i).shape for i in range(r.num_frames)}
+        if r.num_frames != VIDEO_FRAMES or shapes != {(*FRAME_HW, 3)}:
+            raise AssertionError(f"{path}: {r.num_frames} frames of "
+                                 f"{shapes}")
+        if depths is None:
+            return
+        for i, depth in enumerate(depths):
+            want = native.encode_jpeg(
+                colormap.colorize_depth(depth, bgr=False), 90)
+            if r.frame_bytes(i) != want:
+                raise AssertionError(f"{path}: frame {i} is not the "
+                                     "rendering of its depth map")
+
+
+def _decoder_layouts(runner, rz, bgr) -> list:
+    """Whether each decoder resize that K6 takes lies in channels-last
+    memory, the kernel's layout (another layout would be copied into it
+    first): a spy on the dispatch test, so the launch counter stays the
+    wrapper's own."""
+    import torch
+
+    seen = []
+    real = rz._takes_lerp
+
+    def spy(x, method, channels_last):
+        taken = real(x, method, channels_last)
+        if taken:
+            seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return taken
+
+    with _Knobs({"_PALLAS_RESIZE": True}):
+        rz._takes_lerp = spy
+        try:
+            runner(bgr)
+        finally:
+            rz._takes_lerp = real
+    return seen
+
+
+def phase_video(model, smi: str) -> dict[str, dict[str, int]]:
+    """The slice's path: ``cli.video_depth.main`` on a 48-frame MJPEG AVI
+    at vitl width, 518 px, batch 8, under each knob configuration, with
+    the launch counts held to the batches the engine ran. The depth maps
+    the entry point rendered (all 48, through its ``on_depth`` hook) are
+    held to the plain f32 model on the same weights, and every output
+    frame to the rendering of its depth map; then the environment knobs
+    through ``python -m``."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    native = importlib.import_module(f"{PKG}.media.native")
+    colormap = importlib.import_module(f"{PKG}.media.colormap")
+    vd = importlib.import_module(f"{PKG}.cli.video_depth")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        avi = os.path.join(tmp, "in.avi")
+        rgb = _video_input(avi, seed=5)
+        bgr = [f[..., ::-1] for f in rgb]  # as the entry point submits them
+        runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
+        x = torch.from_numpy(np.stack(bgr[:BATCH])).cuda()
+
+        # Host codecs alone, per frame: decode, and encode a rendering.
+        t0 = time.perf_counter()
+        with native.VideoReader(avi) as r:
+            for i in range(r.num_frames):
+                r.frame_rgb(i)
+        dec_ms = (time.perf_counter() - t0) / VIDEO_FRAMES * 1e3
+        vis = colormap.colorize_depth(np.linspace(0, 20, FRAME_HW[0] *
+                                                  FRAME_HW[1]).reshape(
+            FRAME_HW).astype(np.float32), bgr=False)
+        t0 = time.perf_counter()
+        for _ in range(VIDEO_FRAMES):
+            native.encode_jpeg(vis, 90)
+        enc_ms = (time.perf_counter() - t0) / VIDEO_FRAMES * 1e3
+        print(f"video: {VIDEO_FRAMES} frames of {FRAME_HW}, MJPEG q90, "
+              f"{os.path.getsize(avi) / 2**20:.2f} MiB; host decode "
+              f"{dec_ms:.2f} ms/frame, encode of a rendering {enc_ms:.2f} "
+              "ms/frame")
+
+        layouts = _decoder_layouts(runner, rz, bgr[:BATCH])
+        print(f"video: decoder resizes reaching K6: {len(layouts)}, in "
+              f"channels-last memory: {sum(layouts)}")
+        if layouts != [True] * 5:
+            raise AssertionError(f"decoder resizes at K6: {layouts} (want "
+                                 "five, all in channels-last memory)")
+
+        # The yardsticks, over all 48 frames: the plain model in bf16 and
+        # in f32, knobs off. The entry point builds the same seeded model.
+        def every_frame():
+            return np.concatenate([np.stack(runner(bgr[i:i + BATCH]))
+                                   for i in range(0, VIDEO_FRAMES, BATCH)])
+
+        with _Knobs({}):
+            attn.set_force_plain(True)
+            try:
+                plain = every_frame()
+                model.pretrained.dtype = torch.float32
+                with torch.backends.cudnn.flags(
+                        enabled=True,
+                        benchmark=torch.backends.cudnn.benchmark,
+                        deterministic=torch.backends.cudnn.deterministic,
+                        allow_tf32=False):
+                    f32 = every_frame()
+            finally:
+                model.pretrained.dtype = torch.bfloat16
+                attn.set_force_plain(False)
+        d_pf = np.abs(plain - f32)
+
+        for cfg, (flags, per_batch) in VIDEO_CONFIGS.items():
+            out = os.path.join(tmp, f"out_{len(launches)}.mp4")
+            depths = {}
+            with _Knobs(flags):
+                torch.cuda.synchronize()
+                _video_counts(fa, rz, zero=True)
+                t0 = time.perf_counter()
+                result = vd.main(["-i", avi, "-o", out, "--encoder", "vitl",
+                                  "--batch-size", str(BATCH)],
+                                 on_depth=depths.__setitem__)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = _video_counts(fa, rz)
+                dev_ms = _cuda_ms(lambda: da._run_batched_u8(
+                    model, x, runner.net_hw, FRAME_HW), iters=10, warmup=2)
+            stats = result["engine"]
+            n_b = stats["batches"]
+            want = {k: v * n_b for k, v in per_batch.items()}
+            want.update(K2=0, K3=0)
+            if sorted(depths) != list(range(VIDEO_FRAMES)):
+                raise AssertionError(f"video [{cfg}]: depth maps of frames "
+                                     f"{sorted(depths)}")
+            maps = np.stack([depths[i] for i in range(VIDEO_FRAMES)])
+            _check_video(out, maps)
+            d_kf = np.abs(maps - f32)
+            d_kp = np.abs(maps - plain)
+            print(f"video [{cfg}]: {result['frames']} frames in {n_b} "
+                  f"batches (fill {stats['mean_batch_fill']:.2f}), "
+                  f"{seconds:.2f} s in main() (model init, decode, serve, "
+                  f"render, encode): {result['frames'] / seconds:.2f} "
+                  f"frames/s; latency p50 {stats['latency_p50_ms']:.1f} ms; "
+                  f"BatchedRunner device {dev_ms:.2f} ms/batch "
+                  f"({BATCH / dev_ms * 1e3:.2f} frames/s), {smi}")
+            print(f"  launches {counts} (want {want}); the entry point's "
+                  f"{VIDEO_FRAMES} depth maps vs plain f32: mean "
+                  f"{d_kf.mean():.5f} m, max {d_kf.max():.4f} m (plain bf16 "
+                  f"vs f32: mean {d_pf.mean():.5f}, max {d_pf.max():.4f}); "
+                  f"vs plain bf16 max {d_kp.max():.4f}; every output frame "
+                  "is its depth map's rendering")
+            if counts != want or stats["failed"] or \
+                    result["frames"] != VIDEO_FRAMES:
+                raise AssertionError(f"video [{cfg}]: launches {counts}, "
+                                     f"want {want}; stats {stats}")
+            if not (d_kf.mean() <= 1.5 * d_pf.mean()
+                    and d_kp.max() <= 2.0 * d_pf.max()):
+                raise AssertionError(f"video [{cfg}]: depth further from "
+                                     "f32 than the plain bf16 model allows")
+            launches[cfg] = counts
+
+        # The environment knobs reach the real entry point: python -m.
+        out = os.path.join(tmp, "env.avi")
+        code = (
+            "import json, runpy, sys\n"
+            f"sys.argv = ['video_depth', '-i', {avi!r}, '-o', {out!r}, "
+            "'--encoder', 'vitl']\n"
+            f"runpy.run_module('{PKG}.cli.video_depth', run_name='__main__',"
+            " alter_sys=True)\n"
+            f"fa = sys.modules['{PKG}.ops.flash_attention']\n"
+            f"rz = sys.modules['{PKG}.ops.resize']\n"
+            "print(json.dumps({'K1': fa.flash_attention.launches, "
+            "'K4': fa.flash_attention_pair.launches, "
+            "'K6': rz.lerp_resize.launches}))\n")
+        env = dict(os.environ, E3D_PALLAS_RESIZE="1", E3D_FLASH_PAIR="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m video_depth under the knobs "
+                                 f"exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        batches = sub["K4"] // BLOCKS
+        print(f"video [E3D_PALLAS_RESIZE=1 E3D_FLASH_PAIR=1, python -m, "
+              f"own process]: {time.perf_counter() - t0:.1f} s, launches "
+              f"{sub}")
+        if sub["K1"] or not batches or sub["K4"] != BLOCKS * batches \
+                or sub["K6"] != 5 * batches:
+            raise AssertionError(f"python -m video_depth: launches {sub}")
+        _check_video(out)
+    return launches
 
 
 # ------------------------------------------------------------- training
@@ -736,11 +1139,22 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
-    k1 = phase_k1()
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    k1 = phase_forward("K1", "flash_attn_fwd", 336, fa.flash_attention)
     k2 = phase_bwd(fused=True)
     k3 = phase_bwd(fused=False)
+    k4 = phase_forward("K4", "flash_attn_fwd_pair", 181,
+                       fa.flash_attention_pair)
+    phase_pair_grads()
+    k5 = phase_forward(
+        "K5 pipe", "flash_attn_fwd_heads", 254,
+        lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=True))
+    k5_loop = phase_forward(
+        "K5 hloop", "flash_attn_fwd_heads", 274,
+        lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=False))
+    k6 = phase_k6()
+    torch.cuda.empty_cache()
 
-    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     da = importlib.import_module(f"{PKG}.models.depth_anything")
     model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                  seed=0)
@@ -750,6 +1164,7 @@ def main() -> int:
     phase_plain(model, frames[:BATCH])
     phase_throughput(model, frames, k1["ms"], smi)
     phase_profile(model, frames)
+    video = phase_video(model, smi)
     del model
     torch.cuda.empty_cache()
 
@@ -761,12 +1176,32 @@ def main() -> int:
     phase_train_profile(task, state, data)
 
     k1["launches"] = serve_k1
-    k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"]}
+    k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"],
+                              "video": video["default"]["K1"]}
+    # "video": the launches over the four configurations (the video
+    # phase holds every kernel outside its configuration to 0).
+    on_video = {k: sum(c[k] for c in video.values())
+                for k in ("K2", "K3", "K5")}
     k2["launches"] = train["K2"]
-    k2["launches_by_path"] = {"train": train["K2"]}
+    k2["launches_by_path"] = {"train": train["K2"], "video": on_video["K2"]}
     k3["launches"] = split["K3"]
-    k3["launches_by_path"] = {"train_split": split["K3"]}
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    k3["launches_by_path"] = {"train_split": split["K3"],
+                              "video": on_video["K3"]}
+    pair = video["PALLAS_RESIZE + PAIR"]
+    k4["launches"] = pair["K4"]
+    k4["launches_by_path"] = {"video": pair["K4"]}
+    # K5's record: its pipelined schedule (the first in the JAX package's
+    # order), with the looped one beside it.
+    k5["launches"] = on_video["K5"]
+    k5["launches_by_path"] = {"video": on_video["K5"],
+                              "video_pipe": video["PIPE"]["K5"],
+                              "video_hloop": video["HLOOP"]["K5"]}
+    k5["hloop"] = {key: k5_loop[key] for key in
+                   ("replaces", "max_abs_err", "ms", "plain_ms",
+                    "library_ms")}
+    k6["launches"] = pair["K6"]
+    k6["launches_by_path"] = {"video": pair["K6"]}
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

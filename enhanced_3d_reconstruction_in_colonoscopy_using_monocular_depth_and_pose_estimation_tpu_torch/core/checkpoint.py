@@ -116,6 +116,22 @@ class CheckpointManager:
             return {k: v for k, v in m.items() if k != "step"}
         return _read_json(os.path.join(root, str(step), _METRICS))
 
+    def read_best(self) -> dict | None:
+        """The saved state dict with the lowest val_loss in the best-k
+        store, else the newest save's (the JAX package's
+        ``restore_best_untyped``); None if there is none."""
+        ranked = sorted(_steps(self.directory),
+                        key=lambda s: (self._val_loss(s), -s))
+        if ranked:
+            root, step = self.directory, ranked[0]
+        else:
+            owner = self._latest()
+            if owner is None:
+                return None
+            root, step = owner
+        return torch.load(os.path.join(root, str(step), _STATE),
+                          map_location="cpu", weights_only=True)
+
     def restore_latest(self, state: Any) -> Any | None:
         """Load the newest save into ``state`` and return it; None if there
         is none."""

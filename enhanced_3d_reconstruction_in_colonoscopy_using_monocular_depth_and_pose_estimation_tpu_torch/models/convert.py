@@ -19,16 +19,43 @@ rules of its ``convert_dav2``:
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-from .depth_anything import MODEL_CONFIGS
+from .depth_anything import MODEL_CONFIGS, DepthAnythingV2, build_depth_model
 from .dinov2 import VIT_ARCHS
 
 UNUSED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",)
+
+
+def load_or_init_depth_model(encoder: str, max_depth: float,
+                             load_from: str | None,
+                             device: str | torch.device = "cuda",
+                             seed: int = 0) -> DepthAnythingV2:
+    """The ``encoder`` depth model on ``device`` (the card unless the
+    caller asks for the CPU), in eval mode, as the JAX package's
+    ``load_or_init_depth_params``: a directory is the port's own training
+    output (``core.checkpoint``: the best save by val_loss, else the
+    newest), a file is a DAv2 ``.pth`` or Lightning ``.ckpt``, and neither
+    gives the seeded random init."""
+    from ..core.checkpoint import CheckpointManager
+
+    model = build_depth_model(encoder, max_depth=max_depth, device=device,
+                              seed=seed)
+    if load_from and os.path.isdir(load_from):
+        state = CheckpointManager(load_from).read_best()
+        if state is None:
+            raise FileNotFoundError(f"no checkpoints in {load_from}")
+        model.load_state_dict(state["model"])
+    elif load_from:
+        load_dav2_state_dict(model, load_torch_state_dict(load_from))
+    else:
+        print(f"[{encoder}] no checkpoint given; random init (smoke mode)")
+    return model
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:

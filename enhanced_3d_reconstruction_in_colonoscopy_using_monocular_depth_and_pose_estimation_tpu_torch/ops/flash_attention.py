@@ -1,14 +1,18 @@
-"""Flash attention for the ViT encoder: kernel K1 (forward), kernels K2 and
-K3 (backward), their plain PyTorch versions, and the autograd Function
-that ties them together.
+"""Flash attention for the ViT encoder: kernels K1, K4 and K5 (forward),
+kernels K2 and K3 (backward), their plain PyTorch versions, and the
+autograd Function that ties them together.
 
 ``flash_attention`` takes (B, N, H, D) q, k, v and returns
-``(o (B, N, H, D), lse (B, H, N) f32)``. On CUDA tensors it launches the
+``(o (B, N, H, D), lse (B, H, N) f32)``. On CUDA tensors it launches a
 hand-written Hopper kernel in ``csrc/flash_attn_fwd.cu`` (bf16, D in
 {32, 64}, unit stride on D, any other strides, so views of the packed qkv
 projection go in without copies) or raises; on CPU tensors it computes
-``flash_attention_reference``. The kernel masks the ragged edges by index,
-so no caller pads the token axis.
+``flash_attention_reference``. The kernels mask the ragged edges by index,
+so no caller pads the token axis. Which forward kernel runs follows the
+JAX package's knobs (``forward_schedule``): K1 by default, K4 (two heads
+per block, ``E3D_FLASH_PAIR``) or K5 (a block of heads per block,
+``E3D_FLASH_PIPE`` / ``E3D_FLASH_HLOOP``); all three give the same O and
+LSE.
 
 The backward has two schedules, as in the JAX package: K2
 (``flash_attention_bwd_fused``, one pass over key blocks, dQ summed across
@@ -19,7 +23,8 @@ the same ``E3D_FLASH_BWD_FUSED`` knob, read at import. Both live in
 ``flash_attention_bwd_reference``.
 
 ``flash_attention_qkv`` is the differentiable entry: it takes the packed
-(B, N, 3, H, D) projection, runs K1 on its three views, and its backward
+(B, N, 3, H, D) projection, runs the forward (K1, K4 or K5) on its three
+views, and its backward
 writes dq, dk and dv straight into the three views of one packed dqkv, so
 the backward of the projection gets one contiguous gradient.
 """
@@ -37,9 +42,23 @@ from ..utils import cbuild
 HEAD_DIMS = (32, 64)
 _LIB_NAME = "flash_attn_fwd"
 _BWD_LIB_NAME = "flash_attn_bwd"
+_K1_ENTRY = "e3d_flash_attn_fwd"
+_K4_ENTRY = "e3d_flash_attn_fwd_pair"
+_K5_ENTRY = "e3d_flash_attn_fwd_heads"
 # The backward schedule: K2 (fused) unless E3D_FLASH_BWD_FUSED=0 asks for
 # K3 (split), the knob of the JAX package's ops/flash_attention.py.
 _BWD_FUSED = os.environ.get("E3D_FLASH_BWD_FUSED", "1") == "1"
+# The forward schedule, from the same module's knobs: E3D_FLASH_PAIR=1
+# selects K4, E3D_FLASH_PIPE=1 or E3D_FLASH_HLOOP=1 K5. All three compute
+# K1's function; the backward stays K2 or K3.
+_PAIR = os.environ.get("E3D_FLASH_PAIR", "0") == "1"
+_PIPE = os.environ.get("E3D_FLASH_PIPE", "0") == "1"
+_HLOOP = os.environ.get("E3D_FLASH_HLOOP", "0") == "1"
+# Inputs of K5's heads-per-block rule: the JAX package's default query
+# block and forward VMEM budget, as constants. Their knobs there are TPU
+# settings and do not reach the port.
+_BLOCK_Q = 704
+_FWD_BUDGET = 768 * 1024
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -90,12 +109,15 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.e3d_flash_attn_fwd
+def _bind(lib: ctypes.CDLL, entry: str):
+    """One forward entry: K1 and K4 take (q, k, v, o, lse, B, N, H, D, nine
+    strides, scale, stream); K5 takes hb and pipe before the stream."""
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
+        tail = ([ctypes.c_int, ctypes.c_int] if entry == _K5_ENTRY else [])
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 9 + [ctypes.c_float] + tail
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -141,23 +163,56 @@ def _check(q: torch.Tensor, *others: tuple[str, torch.Tensor]) -> None:
         raise ValueError("flash_attention: empty sequence")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Attention over (B, N, H, D): (o (B, N, H, D), lse (B, H, N) f32).
+def padded_len(n: int) -> int:
+    """The token count the JAX package's forward runs at for n tokens
+    (``padded_len`` at its default query block). The port never pads;
+    this only feeds ``head_block``."""
+    bq = min(_BLOCK_Q, -(-n // 16) * 16)
+    return -(-n // bq) * bq
 
-    CPU tensors take the plain version; CUDA tensors launch kernel K1 and
-    add one to ``flash_attention.launches``. Not differentiable, so it
-    raises, on every device alike, when autograd would record it: train
-    through ``flash_attention_qkv``."""
+
+def head_block(bh: int, n: int, d: int) -> int:
+    """K5's heads per block for B*H = ``bh`` heads of n tokens, by the JAX
+    package's ``_head_block`` rule at its defaults (its padded K+V of a
+    head against ``FWD_BUDGET``, shrunk to a divisor of B*H): 2 at vitl's
+    518 px. K5's shared memory does not depend on it."""
+    per_head = 2 * padded_len(n) * d * 2  # K and V, bf16
+    hb = min(max(1, _FWD_BUDGET // per_head), bh)
+    while bh % hb:
+        hb -= 1
+    return hb
+
+
+def forward_schedule(bh: int) -> str:
+    """The forward kernel for B*H = ``bh`` heads on CUDA tensors, in the
+    JAX package's ``_fwd`` order: K4 under ``_PAIR`` when B*H is even, then
+    K5 under ``_PIPE``, then K5 under ``_HLOOP``, else K1."""
+    if _PAIR and bh % 2 == 0:
+        return "K4"
+    if _PIPE:
+        return "K5 pipe"
+    if _HLOOP:
+        return "K5 hloop"
+    return "K1"
+
+
+def _refuse_autograd(q, k, v) -> None:
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("flash_attention is not differentiable (kernel "
-                           "K1 writes outside autograd); call "
+        raise RuntimeError("flash_attention is not differentiable (kernels "
+                           "K1, K4 and K5 write outside autograd); call "
                            "flash_attention_qkv on the packed projection, "
                            "or run under torch.no_grad()")
-    if q.device.type == k.device.type == v.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
+
+
+def _on_cpu(q, k, v) -> bool:
+    return q.device.type == k.device.type == v.device.type == "cpu"
+
+
+def _launch_fwd(entry: str, q, k, v, *extra) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Checks and one call of a forward entry of ``flash_attn_fwd``."""
     _check(q, ("k", k), ("v", v))
-    fn = _bind(cbuild.load(_LIB_NAME))
+    fn = _bind(cbuild.load(_LIB_NAME), entry)
     b, n, h, d = q.shape
     o = torch.empty((b, n, h, d), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -166,14 +221,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), b, n, h, d, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d),
-                 stream)
-    flash_attention.launches += 1
+                 *extra, stream)
     if err:
-        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return o, lse
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention over (B, N, H, D): (o (B, N, H, D), lse (B, H, N) f32).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    that ``forward_schedule`` names: K1 (adding one to
+    ``flash_attention.launches``), or K4 or K5 through
+    ``flash_attention_pair`` and ``flash_attention_heads``. Not
+    differentiable, so it raises, on every device alike, when autograd
+    would record it: train through ``flash_attention_qkv``."""
+    _refuse_autograd(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_attention_reference(q, k, v)
+    kernel = forward_schedule(q.shape[0] * q.shape[2])
+    if kernel == "K4":
+        return flash_attention_pair(q, k, v)
+    if kernel != "K1":
+        return flash_attention_heads(q, k, v, pipe=kernel == "K5 pipe")
+    out = _launch_fwd(_K1_ENTRY, q, k, v)
+    flash_attention.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K4: K1's function, two heads of the B*H axis per block (B*H
+    even). CPU tensors take the plain version; CUDA tensors launch K4 and
+    add one to ``flash_attention_pair.launches``, or raise."""
+    _refuse_autograd(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_attention_reference(q, k, v)
+    if (q.shape[0] * q.shape[2]) % 2:
+        raise ValueError(f"flash_attention_pair: B*H = {q.shape[0]} x "
+                         f"{q.shape[2]} is odd; K4 pairs heads")
+    out = _launch_fwd(_K4_ENTRY, q, k, v)
+    flash_attention_pair.launches += 1
+    return out
+
+
+flash_attention_pair.launches = 0
+
+
+def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pipe: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K5: K1's function, ``head_block`` heads of the B*H axis per
+    block, pipelined across heads when ``pipe`` (the JAX package's
+    ``E3D_FLASH_PIPE``) or looped (``E3D_FLASH_HLOOP``). CPU tensors take
+    the plain version; CUDA tensors launch K5 and add one to
+    ``flash_attention_heads.launches``, or raise."""
+    _refuse_autograd(q, k, v)
+    if _on_cpu(q, k, v):
+        return flash_attention_reference(q, k, v)
+    b, n, h, d = q.shape
+    out = _launch_fwd(_K5_ENTRY, q, k, v, head_block(b * h, n, d),
+                      int(pipe))
+    flash_attention_heads.launches += 1
+    return out
+
+
+flash_attention_heads.launches = 0
 
 
 def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool) -> None:
@@ -240,7 +356,8 @@ flash_attention_bwd_split.launches = 0
 class FlashAttentionQKV(torch.autograd.Function):
     """Attention of a packed (B, N, 3, H, D) projection, differentiable.
 
-    Forward: K1 on the three strided views (the plain version on the CPU);
+    Forward: ``flash_attention`` (K1, or K4/K5 under their knobs) on the
+    three strided views (the plain version on the CPU);
     returns (o, lse) and saves (qkv, o, lse). Backward: one packed dqkv
     whose three views K2 (or K3) fill, or the plain backward on the CPU.
     Only ``o`` is differentiated, as in the JAX package's custom_vjp."""

@@ -22,14 +22,31 @@ module sets nothing global.
 The public functions take channels-last images (NHWC, HWC or HW) like the
 JAX package; ``channels_last=False`` takes (..., H, W) tensors instead, the
 decoder's NCHW layout.
+
+Kernel K6 (``lerp_resize``, ``csrc/lerp_resize.cu``) is the align-corners
+bilinear resize as a 2-tap lerp, the JAX package's
+``_lerp_resize_pallas``. ``resize_align_corners`` takes it under the same
+``E3D_PALLAS_RESIZE`` knob (read at import into ``_PALLAS_RESIZE``) on the
+same conditions: bilinear, 4-D, channels a multiple of 128, both input
+sides at least 2. Its plain version is ``lerp_resize_reference``, which is
+not the matmul resize: that one rounds its weights to bf16.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
+
+from ..utils import cbuild
+
+# The JAX package's E3D_PALLAS_RESIZE knob: every decoder upsample on K6.
+_PALLAS_RESIZE = os.environ.get("E3D_PALLAS_RESIZE", "0") == "1"
+_LERP_LIB = "lerp_resize"
+_LERP_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.5) -> np.ndarray:
@@ -177,12 +194,145 @@ def resize_antialias(x: torch.Tensor, out_hw: tuple[int, int],
                             channels_last)
 
 
+def _takes_lerp(x: torch.Tensor, method: str, channels_last: bool) -> bool:
+    """The JAX package's conditions for K6: bilinear, 4-D, channels a
+    multiple of 128, both input sides at least 2."""
+    if not (_PALLAS_RESIZE and method == "bilinear" and x.dim() == 4):
+        return False
+    c = x.shape[3] if channels_last else x.shape[1]
+    return c % 128 == 0 and min(_hw(x, channels_last)) >= 2
+
+
 def resize_align_corners(x: torch.Tensor, out_hw: tuple[int, int],
                          method: str = "bilinear",
                          channels_last: bool = True) -> torch.Tensor:
-    """torch ``F.interpolate(..., align_corners=True)``-style resize."""
+    """torch ``F.interpolate(..., align_corners=True)``-style resize; K6
+    under ``_PALLAS_RESIZE`` where it applies (NHWC input goes to it as
+    the NCHW view of channels-last memory; the decoder's NCHW tensors
+    already lie in that memory), else the matmul resize."""
+    if _takes_lerp(x, method, channels_last):
+        if not channels_last:
+            return lerp_resize(x, out_hw)
+        y = lerp_resize(x.contiguous().permute(0, 3, 1, 2), out_hw)
+        return y.permute(0, 2, 3, 1)
     return _apply_separable(x, _align_corners_matrix, out_hw, method,
                             channels_last)
+
+
+# ------------------------------------------ K6: bilinear as a 2-tap lerp
+
+
+@functools.lru_cache(maxsize=256)
+def _lerp_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray,
+                                                np.ndarray]:
+    """(lo int32, w0 f32, w1 f32) per output index, from f64 coordinates as
+    the JAX package's ``_lerp_taps_static``: w0 = f32(1 - frac), w1 =
+    f32(frac); w1 == 0 marks a copy of input ``lo``."""
+    if n_out == 1 or n_in == 1:
+        lo = np.zeros(n_out, np.int64)
+        frac = np.zeros(n_out, np.float64)
+    else:
+        coords = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+        lo = np.clip(np.floor(coords).astype(np.int64), 0, n_in - 2)
+        frac = coords - lo
+    return (lo.astype(np.int32), (1.0 - frac).astype(np.float32),
+            frac.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_taps(n_in: int, n_out: int, device: torch.device
+                 ) -> tuple[torch.Tensor, ...]:
+    """``_lerp_taps`` on the device, uploaded once per shape (outside
+    inference mode, as ``_device_matrix``)."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _lerp_taps(n_in, n_out))
+
+
+def _lerp_pass(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
+    """One lerp pass along ``dim``: blend in f32, round to x's dtype."""
+    n_in = x.shape[dim]
+    lo, w0, w1 = _device_taps(n_in, n_out, x.device)
+    lo = lo.long()
+    shape = [1] * x.dim()
+    shape[dim] = n_out
+    w0, w1 = w0.view(shape), w1.view(shape)
+    a = x.index_select(dim, lo)
+    b = x.index_select(dim, (lo + 1).clamp(max=n_in - 1))
+    blend = (a.float() * w0 + b.float() * w1).to(x.dtype)
+    return torch.where(w1 == 0, a, blend)
+
+
+def lerp_resize_reference(x: torch.Tensor, out_hw: tuple[int, int]
+                          ) -> torch.Tensor:
+    """Plain version of K6 on (..., H, W): the H pass, rounded to x's
+    dtype, then the W pass, as the JAX package's two Pallas passes; a pass
+    whose size does not change is skipped."""
+    h2, w2 = out_hw
+    if h2 != x.shape[-2]:
+        x = _lerp_pass(x, h2, x.dim() - 2)
+    if w2 != x.shape[-1]:
+        x = _lerp_pass(x, w2, x.dim() - 1)
+    return x
+
+
+def _bind_lerp(lib: ctypes.CDLL):
+    fn = lib.e3d_lerp_resize
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lerp_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Kernel K6: align-corners bilinear resize of (N, C, H, W) ``x`` to
+    ``out_hw``.
+
+    CPU tensors take ``lerp_resize_reference``; CUDA tensors (bf16 or
+    f32) launch the kernel, adding one to ``lerp_resize.launches``, or
+    raise. The kernel reads and writes channels-last memory, the layout
+    of the decoder's tensors; ``x`` in another layout is copied into it
+    first, and the output is channels-last. K6 has no backward (the JAX
+    package gives it no VJP), so a call autograd would record raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("lerp_resize (kernel K6) is not differentiable; "
+                           "run it under torch.no_grad() or leave "
+                           "E3D_PALLAS_RESIZE off")
+    if x.device.type == "cpu":
+        return lerp_resize_reference(x, out_hw)
+    if x.device.type != "cuda":
+        raise ValueError(f"lerp_resize: x on {x.device}; it takes a CUDA "
+                         "tensor (or a CPU one for the plain version)")
+    if x.dtype not in _LERP_DTYPES:
+        raise ValueError(f"lerp_resize: x is {x.dtype}; the kernel takes "
+                         "float32 or bfloat16")
+    if x.dim() != 4:
+        raise ValueError(f"lerp_resize: x has shape {tuple(x.shape)}; the "
+                         "kernel takes (N, C, H, W)")
+    n, c, h, w = x.shape
+    h2, w2 = out_hw
+    if (h2, w2) == (h, w):
+        return x
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.empty((n, c, h2, w2), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    rows = (_device_taps(h, h2, x.device) if h2 != h else (None,) * 3)
+    cols = (_device_taps(w, w2, x.device) if w2 != w else (None,) * 3)
+    ptrs = [None if t is None else t.data_ptr() for t in (*rows, *cols)]
+    fn = _bind_lerp(cbuild.load(_LERP_LIB))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), n, c, h, w, h2, w2, *ptrs,
+                 _LERP_DTYPES[x.dtype], stream)
+    if err:
+        raise RuntimeError(f"lerp_resize launch failed: CUDA error {err}")
+    lerp_resize.launches += 1
+    return y
+
+
+lerp_resize.launches = 0
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int],

@@ -11,9 +11,11 @@ JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
 
 # Every module of the port; the probe fails if one is missing or leaks.
 MODULES = (
+    "cli.convert_video", "cli.video_depth",
     "core.checkpoint", "core.debug", "core.device", "core.dtypes",
     "core.logging", "core.metrics", "data.preprocess",
-    "evaluation.depth_metrics", "losses.silog", "models.convert",
+    "evaluation.depth_metrics", "losses.silog", "media.colormap",
+    "media.native", "media.video", "models.convert",
     "models.depth_anything", "models.dinov2", "models.dpt", "ops.attention",
     "ops.augment", "ops.flash_attention", "ops.resize", "serving.engine",
     "train.depth_task", "train.loop", "train.optim", "utils.cbuild",

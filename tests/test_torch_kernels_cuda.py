@@ -295,3 +295,159 @@ def test_vitt_train_step_on_kernels_matches_plain_attention(card, fused):
     moved = [k for k in params if not torch.equal(params[k], init[k])]
     p_moved = [k for k in params if not torch.equal(p_params[k], init[k])]
     assert moved == p_moved and len(moved) >= len(params) - 1
+
+
+# ------------------------------------------- K4, K5: forward schedules
+
+VARIANTS = {
+    "K4": lambda q, k, v: fa.flash_attention_pair(q, k, v),
+    "K5_pipe": lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=True),
+    "K5_hloop": lambda q, k, v: fa.flash_attention_heads(q, k, v,
+                                                         pipe=False),
+}
+
+
+def _variant_counter(name):
+    return fa.flash_attention_pair if name == "K4" else \
+        fa.flash_attention_heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32),
+                                   (3, 50, 4, 64), (1, 37, 2, 32)])
+def test_forward_variants_match_plain_and_k1(shape, variant, card):
+    """K4 and K5 (both schedules) against the plain version with K1's
+    tolerances, and against K1 itself: the same per-head arithmetic in the
+    same order, so the same bits."""
+    q, k, v = _packed_qkv(*shape, seed=sum(shape) + 7, card=card)
+    counter = _variant_counter(variant)
+    before = counter.launches
+    o, lse = VARIANTS[variant](q, k, v)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ro, rlse = flash_attention_reference(q, k, v)
+    assert o.shape == q.shape and lse.shape == (shape[0], shape[2], shape[1])
+    assert (o.float() - ro.float()).abs().max().item() <= 2e-2
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    o1, lse1 = flash_attention(q, k, v)
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+
+
+@pytest.mark.cuda
+def test_head_block_and_odd_pairs(card, monkeypatch):
+    """K5 takes the JAX rule's two heads per block at vitl's 518 px; K4
+    refuses an odd B*H, and under the pair knob an odd B*H runs K1."""
+    assert fa.head_block(8 * 16, 1370, 64) == 2
+    q, k, v = _packed_qkv(1, 40, 3, 64, seed=9, card=card)
+    with pytest.raises(ValueError, match="odd"):
+        fa.flash_attention_pair(q, k, v)
+    monkeypatch.setattr(fa, "_PAIR", True)
+    counts = (flash_attention.launches, fa.flash_attention_pair.launches)
+    flash_attention(q, k, v)
+    assert (flash_attention.launches, fa.flash_attention_pair.launches) == \
+        (counts[0] + 1, counts[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["_PAIR", "_PIPE", "_HLOOP"])
+def test_knobs_dispatch_the_forward(knob, card, monkeypatch):
+    monkeypatch.setattr(fa, knob, True)
+    q, k, v = _packed_qkv(2, 70, 4, 64, seed=2, card=card)
+    counter = fa.flash_attention_pair if knob == "_PAIR" else \
+        fa.flash_attention_heads
+    counts = (flash_attention.launches, counter.launches)
+    flash_attention(q, k, v)
+    assert (flash_attention.launches, counter.launches) == \
+        (counts[0], counts[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32)])
+def test_pair_forward_feeds_the_backward(shape, card, monkeypatch):
+    """FlashAttentionQKV with K4 forward and K2 backward gives K1 + K2's
+    dqkv: K4's LSE is usable by the backward."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    qkv = torch.randn((shape[0], shape[1], 3, *shape[2:]), generator=gen,
+                      device=card, dtype=torch.bfloat16)
+    do = torch.randn(shape, generator=gen, device=card, dtype=torch.bfloat16)
+    monkeypatch.setattr(fa, "_BWD_FUSED", True)
+
+    def grads(pair: bool):
+        monkeypatch.setattr(fa, "_PAIR", pair)
+        x = qkv.clone().requires_grad_(True)
+        fa.flash_attention_qkv(x).backward(do)
+        return x.grad
+
+    before = fa.flash_attention_pair.launches
+    got = grads(True)
+    assert fa.flash_attention_pair.launches == before + 1
+    want = grads(False)
+    for name, g, w in zip("qkv", got.unbind(2), want.unbind(2)):
+        assert _rel_err(g, w) <= BWD_TOL, (name, _rel_err(g, w))
+
+
+# ------------------------------------------------ K6: bilinear lerp resize
+
+DPT_RESIZES = [((8, 256, 19, 19), (37, 37)), ((8, 256, 37, 37), (74, 74)),
+               ((8, 256, 74, 74), (148, 148)),
+               ((8, 256, 148, 148), (296, 296)),
+               ((8, 128, 296, 296), (518, 518))]
+
+
+def _ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """At most one ulp of want's dtype apart, element by element."""
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    diff = (got.float() - want.float()).abs()
+    return bool((diff <= want.float().abs() * 2.0 ** -mant + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,out_hw", DPT_RESIZES + [
+    ((2, 128, 20, 30), (20, 61)), ((2, 128, 33, 17), (16, 17)),
+    ((1, 128, 9, 9), (4, 25)), ((1, 12, 9, 9), (5, 17))])
+def test_lerp_resize_matches_plain(shape, out_hw, dtype, card):
+    """K6 on channels-last memory, the decoder's (12 channels take its
+    one-element path), against the plain version."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
+
+    gen = torch.Generator(device=card).manual_seed(shape[2])
+    x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = tres.lerp_resize.launches
+    with torch.no_grad():
+        y = tres.lerp_resize(x, out_hw)
+    torch.cuda.synchronize()
+    assert tres.lerp_resize.launches == before + 1
+    assert y.shape == (*shape[:2], *out_hw) and y.dtype == dtype
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert _ulp_ok(y, tres.lerp_resize_reference(x, out_hw))
+
+
+@pytest.mark.cuda
+def test_lerp_resize_dispatch_and_refusals(card, monkeypatch):
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
+
+    x = torch.randn((1, 128, 6, 6), device=card, dtype=torch.bfloat16)
+    monkeypatch.setattr(tres, "_PALLAS_RESIZE", True)
+    before = tres.lerp_resize.launches
+    with torch.no_grad():
+        tres.resize_align_corners(x, (11, 11), channels_last=False)
+        nhwc = tres.resize_align_corners(x.permute(0, 2, 3, 1), (11, 11))
+        tres.resize_align_corners(x[:, :1], (11, 11), channels_last=False)
+    assert tres.lerp_resize.launches == before + 2
+    assert torch.equal(nhwc.permute(0, 3, 1, 2),
+                       tres.lerp_resize(x, (11, 11)))
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tres.lerp_resize(x.float().requires_grad_(True), (11, 11))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tres.lerp_resize(x.half(), (11, 11))
+    # Another layout is copied into channels-last memory for the kernel.
+    xt = x.transpose(2, 3)
+    with torch.no_grad():
+        y = tres.lerp_resize(xt, (11, 11))
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, tres.lerp_resize(
+        xt.contiguous(memory_format=torch.channels_last), (11, 11)))
+    assert _ulp_ok(y, tres.lerp_resize_reference(xt, (11, 11)))
