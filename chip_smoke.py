@@ -26,11 +26,16 @@ with seeded random weights:
   environment;
 - training: vitl depth fine-tuning at 518 px through ``fit_depth``
   (16-mixed, gradient checkpointing, microbatch 8, grad-accum 4, four
-  optimizer steps, validation), with the attention backward on K2 (and
-  once more on K3, under the JAX package's ``E3D_FLASH_BWD_FUSED=0``
-  knob); checks launch counts, finite losses, that every parameter moved
-  and got a gradient, and the kernels' gradient against the plain
-  attention's; prints frames/s trained and a profile of one microbatch.
+  optimizer steps, validation), with the attention backward on the
+  port's default (``E3D_FLASH_BWD_FUSED`` unset: the one of K2 and K3
+  measured faster) and once more, for one step, on the other; checks
+  launch counts, finite losses, that every parameter moved and got a
+  gradient, and the kernels' gradient against the plain attention's;
+  prints frames/s trained and a profile of one optimizer step.
+
+After the build it prints the compiler's register and spill report and,
+where the toolkit has ``cuobjdump``, how many ``wgmma`` (HGMMA), TMA and
+bulk-copy instructions and scalar atomics each backward kernel holds.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -133,8 +138,68 @@ def phase_build() -> None:
                 if lerp.group(3):
                     args += f", {lerp.group(3)}"
                 print(f"  ptxas {name}: {lerp.group(1)}<{args}>")
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line \
+                    or "warning" in line.lower() or "(C75" in line:
+                # (C75xx): ptxas notes on wgmma and setmaxnreg, such as a
+                # serialized wgmma chain or an ignored register count.
                 print(f"  ptxas:   {line.strip()}")
+
+
+# SASS opcodes that show how a backward kernel moves data and multiplies:
+# wgmma, TMA tensor loads, bulk copies, bulk reductions; and scalar
+# atomics (RED, REDG, ATOM, ATOMG, ATOMS, counted as "atomics").
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "UBLKRED", "atomics")
+
+
+def phase_sass() -> None:
+    """Per backward kernel, its count of each of ``SASS_OPS`` from
+    ``cuobjdump -sass`` of the built library. The dK/dV and dQ kernels
+    must issue wgmma and TMA loads; K2's dQ must leave by bulk reduction
+    and no kernel by scalar atomics."""
+    import os
+    import re
+    import shutil
+
+    cbuild = importlib.import_module(f"{PKG}.utils.cbuild")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("sass: cuobjdump not available")
+        return
+    sass = subprocess.run([tool, "-sass",
+                           str(cbuild.library_path("flash_attn_bwd"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.search(r"Function : \S*?(?<=\d)(flash_attn_\w+?_kernel)"
+                         r"ILi(\d+)E(?:Lb(\d)E)?", line)
+        if head:
+            args = ", ".join(a for a in head.groups()[1:] if a)
+            fn = f"{head.group(1)}<{args}>"
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                       line)
+        if fn and op:
+            name = op.group(1)
+            if name.startswith(("RED", "ATOM")):
+                name = "atomics"
+            if name in SASS_OPS:
+                counts[fn][name] += 1
+    for fn, c in counts.items():
+        print(f"  sass {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    main_kernels = [fn for fn in counts if "_dkv_" in fn or "_dq_" in fn]
+    bad = [fn for fn in main_kernels
+           if not counts[fn]["HGMMA"] or not counts[fn]["UTMALDG"]]
+    bad += [fn for fn, c in counts.items() if c["atomics"]]
+    bad += [fn for fn in main_kernels if fn.endswith(", 1>")
+            and not counts[fn]["UBLKRED"]]
+    if len(main_kernels) != 6 or bad:
+        raise AssertionError(f"sass: kernels {sorted(counts)}; without "
+                             f"wgmma, TMA or the bulk reduction, or with "
+                             f"scalar atomics: {bad}")
 
 
 def _attention_case(b: int, n: int, h: int, d: int, seed: int):
@@ -211,8 +276,9 @@ def phase_forward(label: str, name: str, line: int, call) -> dict:
 
 
 def phase_pair_grads() -> None:
-    """One forward and backward through FlashAttentionQKV with K4 and K2,
-    against K1 and K2: K4's LSE feeds the backward unchanged."""
+    """One forward and backward through FlashAttentionQKV with K4 and the
+    default backward, against K1 and the same backward: K4's LSE feeds
+    the backward unchanged."""
     import torch
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
@@ -232,16 +298,17 @@ def phase_pair_grads() -> None:
             fa._PAIR = False
         return x.grad
 
+    bwd = _bwd_name(fa._BWD_FUSED)
     before = fa.flash_attention_pair.launches
     got = dqkv(True)
     if fa.flash_attention_pair.launches != before + 1:
-        raise AssertionError("K4 + K2: the forward did not run on K4")
+        raise AssertionError(f"K4 + {bwd}: the forward did not run on K4")
     want = dqkv(False)
     rel = {nm: ((g.float() - w.float()).abs().max()
                 / w.float().abs().max()).item()
            for nm, g, w in zip(("dq", "dk", "dv"), got.unbind(2),
                                want.unbind(2))}
-    print(f"K4 + K2 vs K1 + K2 {FLAGSHIP}: max|err| / max|ref| "
+    print(f"K4 + {bwd} vs K1 + {bwd} {FLAGSHIP}: max|err| / max|ref| "
           + ", ".join(f"{k} {e:.3e}" for k, e in rel.items())
           + f" (tol {BWD_TOL})")
     if max(rel.values()) > BWD_TOL:
@@ -791,6 +858,17 @@ def _counts(fa) -> dict[str, int]:
             "K3": fa.flash_attention_bwd_split.launches}
 
 
+def _bwd_name(fused: bool) -> str:
+    return "K2" if fused else "K3"
+
+
+# The backward's kernels, by the part of their names the profiler shows.
+BWD_PARTS = {"prep": "flash_attn_bwd_prep_kernel",
+             "dkv": "flash_attn_bwd_dkv_kernel",
+             "dq": "flash_attn_bwd_dq_kernel",
+             "convert": "flash_attn_bwd_convert_kernel"}
+
+
 def phase_bwd(fused: bool) -> dict:
     """K2 (fused) or K3 (split) against the plain backward; times at the
     flagship shape beside the plain version and SDPA's backward."""
@@ -855,10 +933,15 @@ def phase_bwd(fused: bool) -> dict:
           f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
           f"MB), {flops / ms / 1e9:.1f} TFLOP/s")
-    # What the wrapper's time is made of: the kernels, delta, and for K2
-    # the zeroed dq scratch and its cast.
-    _profiled(lambda: wrapper(*args, *grads), 5,
-              f"{name} wrapper at {FLAGSHIP}")
+    # What the wrapper's time is made of: each of its three kernels.
+    kernels = _profiled(lambda: wrapper(*args, *grads), 5,
+                        f"{name} wrapper at {FLAGSHIP}")
+    parts = {part: sum(e.self_device_time_total for e in kernels
+                       if key in e.key) / 5 / 1e3
+             for part, key in BWD_PARTS.items()}
+    parts = {k: v for k, v in parts.items() if v > 0}
+    print(f"{name} {FLAGSHIP} by kernel (torch.profiler): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
     return {"name": "flash_attn_bwd_fused" if fused else
             "flash_attn_bwd_split", "route": "cuda",
             "source": f"{PKG}/csrc/flash_attn_bwd.cu",
@@ -866,7 +949,7 @@ def phase_bwd(fused: bool) -> dict:
             "max_abs_err": errs[FLAGSHIP], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "kernels_ms": parts}
 
 
 class SeededFrames:
@@ -946,18 +1029,19 @@ def phase_grads(data) -> None:
         return {name: p.grad for name, p in model.named_parameters()
                 if name != "pretrained.mask_token"}
 
+    bwd = _bwd_name(fa._BWD_FUSED)
     _reset_counts(fa)
     g8 = grads(BATCH)
     torch.cuda.synchronize()
     counts = _counts(fa)
-    if counts != {"K1": 2 * BLOCKS, "K2": BLOCKS, "K3": 0}:
-        raise AssertionError(f"grads: launches {counts}, want K1 "
-                             f"{2 * BLOCKS} (forward and recompute), K2 "
-                             f"{BLOCKS}")
+    want = {"K1": 2 * BLOCKS, "K2": 0, "K3": 0, bwd: BLOCKS}
+    if counts != want:
+        raise AssertionError(f"grads: launches {counts}, want {want} (K1 "
+                             "forward and recompute)")
     bad = [name for name, g in g8.items() if g is None
            or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
     qkv = [name for name in g8 if ".attn.qkv." in name]
-    print(f"grads, vitl microbatch {BATCH} on K1/K2: {len(g8)} parameters "
+    print(f"grads, vitl microbatch {BATCH} on K1/{bwd}: {len(g8)} parameters "
           f"({len(qkv)} attn.qkv weights and biases), launches {counts}; "
           f"{len(g8) - len(bad)} with a finite, non-zero gradient")
     if bad or len(qkv) != 2 * BLOCKS:
@@ -977,8 +1061,8 @@ def phase_grads(data) -> None:
     (d_kf, c_kf), (d_pf, c_pf) = dist(kernel), dist(plain)
     d_kp = ((kernel - plain).norm() / plain.norm()).item()
     print(f"grads, vitl microbatch {n}, flattened ({kernel.numel()} values): "
-          f"K1/K2 bf16 vs plain f32 rel. norm {d_kf:.4f}, cos {c_kf:.6f}; "
-          f"plain bf16 vs plain f32 {d_pf:.4f}, cos {c_pf:.6f}; K1/K2 vs "
+          f"K1/{bwd} bf16 vs plain f32 rel. norm {d_kf:.4f}, cos {c_kf:.6f}; "
+          f"plain bf16 vs plain f32 {d_pf:.4f}, cos {c_pf:.6f}; K1/{bwd} vs "
           f"plain bf16 {d_kp:.4f}")
     # Random vitl weights amplify bf16 rounding, so the check is relative:
     # the kernels may be no further from f32 than 1.5x the plain bf16 path.
@@ -997,7 +1081,7 @@ def _read_log(log_dir: str) -> list[dict]:
 def _fit(data, fused: bool, max_steps=None):
     """``fit_depth`` on vitl with the recipe's defaults (16-mixed, gradient
     checkpointing, the DAv2 LRs, clip 1.0) and OneCycle over 4 steps, the
-    backward on K2 (``fused``) or K3. Returns (state, launches, log
+    backward on K2 (``fused``) or K3. Returns (task, state, launches, log
     records, wall seconds)."""
     import os
     import tempfile
@@ -1033,7 +1117,8 @@ def _fit(data, fused: bool, max_steps=None):
 
 
 def phase_train(data, smi: str) -> tuple:
-    """The training path: vitl at 518 px through ``fit_depth``, K2."""
+    """The training path: vitl at 518 px through ``fit_depth``, on the
+    default backward."""
     import math
 
     import torch
@@ -1041,13 +1126,14 @@ def phase_train(data, smi: str) -> tuple:
     dt = importlib.import_module(f"{PKG}.train.depth_task")
     init = {k: v.clone() for k, v in dt.DepthTask(
         "vitl", device="cuda").init_state(0).model.state_dict().items()}
+    fused = importlib.import_module(f"{PKG}.ops.flash_attention")._BWD_FUSED
     torch.cuda.reset_peak_memory_stats()
-    task, state, counts, records, seconds = _fit(data, fused=True)
+    task, state, counts, records, seconds = _fit(data, fused=fused)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n_mb = TRAIN_MICROBATCHES
-    want = {"K1": 2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES,
-            "K2": BLOCKS * n_mb, "K3": 0}
+    want = {"K1": 2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES, "K2": 0,
+            "K3": 0, _bwd_name(fused): BLOCKS * n_mb}
     steps = -(-n_mb // ACCUM)
     train = [r for r in records if "train_loss" in r]
     val = [r for r in records if "val_loss" in r]
@@ -1058,7 +1144,8 @@ def phase_train(data, smi: str) -> tuple:
              if not torch.equal(v, init[k])]
     frames = n_mb * BATCH
     step_s = perf["perf/step_time_mean_s"]
-    print(f"train, vitl 518 px, 16-mixed, gradient checkpointing, "
+    print(f"train on {_bwd_name(fused)} (the default), vitl 518 px, "
+          f"16-mixed, gradient checkpointing, "
           f"{n_mb} microbatches of {BATCH}, accum {ACCUM}: {state.step} "
           f"optimizer steps in {seconds:.2f} s (with preprocessing, "
           f"validation on {VAL_BATCHES} batches and a checkpoint); "
@@ -1085,28 +1172,34 @@ def phase_train(data, smi: str) -> tuple:
     return task, state, counts
 
 
-def phase_train_split(data) -> dict:
-    """The training path once more with the backward on K3 (the JAX
-    package's ``E3D_FLASH_BWD_FUSED=0``), one optimizer step."""
+def phase_train_other(data) -> dict:
+    """The training path once more with the other backward (the JAX
+    package's ``E3D_FLASH_BWD_FUSED`` set against the default), one
+    optimizer step."""
     import math
 
-    _, state, counts, records, seconds = _fit(data, fused=False, max_steps=1)
+    fused = not importlib.import_module(
+        f"{PKG}.ops.flash_attention")._BWD_FUSED
+    name = _bwd_name(fused)
+    _, state, counts, records, seconds = _fit(data, fused=fused, max_steps=1)
     want = {"K1": 2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES, "K2": 0,
-            "K3": BLOCKS * ACCUM}
+            "K3": 0, name: BLOCKS * ACCUM}
     loss = next(r["train_loss"] for r in records if "train_loss" in r)
-    print(f"train on K3: {state.step} optimizer step of {ACCUM} "
-          f"microbatches in {seconds:.2f} s, loss {loss:.5f}; launches "
-          f"{counts}")
+    print(f"train on {name} (the other backward): {state.step} optimizer "
+          f"step of {ACCUM} microbatches in {seconds:.2f} s, loss "
+          f"{loss:.5f}; launches {counts}")
     if counts != want or not math.isfinite(loss):
-        raise AssertionError(f"train on K3: launches {counts}, want {want}")
+        raise AssertionError(f"train on {name}: launches {counts}, want "
+                             f"{want}")
     return counts
 
 
 def phase_train_profile(task, state, data) -> None:
     """Where one whole optimizer step's device time goes, and how long the
     card idles in it: ``DepthTask.train_step`` on vitl, ``ACCUM``
-    microbatches of 8 (forward, recompute and backward on K1/K2), the
-    global-norm clip and the two-group AdamW step."""
+    microbatches of 8 (forward, recompute and backward on K1 and the
+    default backward), the global-norm clip and the two-group AdamW
+    step."""
     import torch
 
     pre = importlib.import_module(f"{PKG}.data.preprocess")
@@ -1123,9 +1216,13 @@ def phase_train_profile(task, state, data) -> None:
                         f"vitl optimizer step ({ACCUM} microbatches of "
                         f"{BATCH}, clip, AdamW)")
     busy = sum(e.self_device_time_total for e in kernels)
-    for label, key in (("K1", "flash_attn_fwd"), ("K2", "flash_attn_bwd")):
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    bwd = _bwd_name(fa._BWD_FUSED)
+    for label, key in (("K1", "flash_attn_fwd"), (bwd, "flash_attn_bwd"),
+                       *((f"  {bwd} {part}", k)
+                         for part, k in BWD_PARTS.items())):
         t = sum(e.self_device_time_total for e in kernels if key in e.key)
-        if busy:
+        if busy and t:
             print(f"  {label} share {t / busy:.3f} "
                   f"({t / iters / 1e3:.3f} ms per optimizer step)")
 
@@ -1139,10 +1236,16 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
+    phase_sass()
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     k1 = phase_forward("K1", "flash_attn_fwd", 336, fa.flash_attention)
     k2 = phase_bwd(fused=True)
     k3 = phase_bwd(fused=False)
+    faster = "K2" if k2["ms"] <= k3["ms"] else "K3"
+    default = _bwd_name(fa._BWD_DEFAULT == "1")
+    print(f"backward with E3D_FLASH_BWD_FUSED unset: {default}; measured "
+          f"faster in this run: {faster} (K2 {k2['ms']:.4f} ms, K3 "
+          f"{k3['ms']:.4f} ms through the wrapper)")
     k4 = phase_forward("K4", "flash_attn_fwd_pair", 181,
                        fa.flash_attention_pair)
     phase_pair_grads()
@@ -1172,7 +1275,7 @@ def main() -> int:
     phase_grads(data)
     torch.cuda.empty_cache()
     task, state, train = phase_train(data, smi)
-    split = phase_train_split(data)
+    other = phase_train_other(data)
     phase_train_profile(task, state, data)
 
     k1["launches"] = serve_k1
@@ -1182,11 +1285,13 @@ def main() -> int:
     # phase holds every kernel outside its configuration to 0).
     on_video = {k: sum(c[k] for c in video.values())
                 for k in ("K2", "K3", "K5")}
-    k2["launches"] = train["K2"]
-    k2["launches_by_path"] = {"train": train["K2"], "video": on_video["K2"]}
-    k3["launches"] = split["K3"]
-    k3["launches_by_path"] = {"train_split": split["K3"],
-                              "video": on_video["K3"]}
+    # "train": the four-step fit on the default backward; "train_other":
+    # the one-step fit on the other.
+    for rec, name in ((k2, "K2"), (k3, "K3")):
+        rec["launches"] = train[name] + other[name]
+        rec["launches_by_path"] = {"train": train[name],
+                                   "train_other": other[name],
+                                   "video": on_video[name]}
     pair = video["PALLAS_RESIZE + PAIR"]
     k4["launches"] = pair["K4"]
     k4["launches_by_path"] = {"video": pair["K4"]}

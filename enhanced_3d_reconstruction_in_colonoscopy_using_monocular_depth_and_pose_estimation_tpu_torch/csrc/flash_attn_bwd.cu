@@ -3,50 +3,78 @@
 // and a dK/dV pass).
 //
 // Replaces the TPU kernels of the JAX package's ops/flash_attention.py:
-//   K2  _bwd_fused / _bwd_fused_kernel              (the default backward)
+//   K2  _bwd_fused / _bwd_fused_kernel              (E3D_FLASH_BWD_FUSED=1)
 //   K3  _bwd / _bwd_dq_kernel + _bwd_dkv_kernel     (E3D_FLASH_BWD_FUSED=0)
-// Per (batch, head), from q, k, v, dO (B, N, H, D) bf16, the forward's
-// natural-log LSE (B, H, N) f32 and delta = rowsum(dO * O) (B, H, N) f32:
+// Per (batch, head), from q, k, v, O, dO (B, N, H, D) bf16 and the
+// forward's natural-log LSE (B, H, N) f32:
 //   P  = exp(Q K^T * scale - LSE)           (f32, recomputed)
 //   dV = bf16(P)^T dO
-//   dS = P * (dO V^T - delta)               (f32)
+//   dS = P * (dO V^T - delta),  delta = rowsum(dO * O) in f32
 //   dK = bf16(dS)^T Q * scale
 //   dQ = bf16(dS) K * scale
 // As on the TPU, P and dS are rounded to bf16 before the products that
-// consume them and every product accumulates in f32. Key columns and
-// query rows at or past N are masked by index (their tiles are zero-filled
-// by cp.async with a source size of 0), and only rows < N are written, so
-// no caller pads the token axis.
-//
-// Design. The TPU kernels hold a whole head's Q and dO (or K and V) in
-// VMEM and carry dQ across a sequential key-block grid. A Hopper block has
-// 227 KB of shared memory and blocks run in parallel in no order, so:
-//   - The dK/dV pass (K2, and K3's second kernel) gives one block of four
-//     warps to one (batch*head, 64-key block). Each warp owns 16 key rows
-//     and keeps their dK and dV in f32 registers while 64-query tiles of
-//     Q, dO, LSE and delta stream through shared memory (two stages,
-//     cp.async). Each tile recomputes P^T and dS^T once.
-//   - K2 also needs dQ, a sum over key blocks. Each block stores its
-//     bf16(dS^T) tile in shared memory, forms the tile's dQ share with one
-//     more product, and adds it into an f32 (B, N, H, D) scratch with
-//     atomicAdd; the caller zeroes the scratch and casts it to bf16. The
-//     order of the atomics changes from run to run, so dQ may differ from
-//     one run to the next by f32 rounding (about 1e-7 relative before the
-//     bf16 cast, at most one bf16 ulp after it).
-//   - K3's dQ kernel gives one block to one (batch*head, 64-query block)
-//     and streams key tiles of K and V, recomputing P a second time. It
-//     has no atomics and is deterministic: 7 score-sized products against
-//     K2's 5, by design.
-// All products run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) fed by ldmatrix, as in flash_attn_fwd.cu.
+// consume them and every product accumulates in f32. Rows at or past N
+// are zero-filled by TMA, masked by index, and never written, so no
+// caller pads the token axis.
 //
 // Bound at the flagship shape (B 8, N 1370, H 16, D 64), per backward:
-//   5 score-sized products x 2 B H N^2 D = 153.8 GFLOP -> 156 us at
-//   989 TFLOP/s; q, k, v, dO, dq, dk, dv (bf16) and LSE, delta (f32):
-//   about 181 MB -> 54 us at 3.35 TB/s. Compute-bound; K3 is held to the
-//   same bound (it computes the same function). This first version uses
-//   mma.sync, not wgmma/TMA, and no warp specialisation.
+// 5 score-sized products x 2 B H N^2 D = 153.8 GFLOP -> 156 us at 989
+// TFLOP/s; q, k, v, O, dO, dq, dk, dv (bf16) and LSE (f32) about 180 MB
+// -> 54 us at 3.35 TB/s. Compute-bound, so the design feeds the tensor
+// cores with wgmma and keeps the copies off the threads that issue it:
+//
+// 1. flash_attn_bwd_prep_kernel: one pass over O and dO writes delta and
+//    LSE * log2(e) into padded (B, H, Np) f32 rows, Np = N rounded up to
+//    the 64-query tile, with delta = 0 and LSE = +inf past N (so P = 0
+//    there); under K2 it also zeroes the f32 dQ accumulator. The padding
+//    makes every 64-entry tile 256-byte aligned, which the bulk copies
+//    need ((B, H, 1370) rows start at odd multiples of 8 bytes).
+// 2. flash_attn_bwd_dkv_kernel<D, kFused>, shared by K2 and K3: one block
+//    per (batch*head, 128-key block) of three warpgroups. Warpgroup 0 is
+//    the producer: it drops to 24 registers (setmaxnreg) and one thread
+//    loads the block's K and V once and streams 64-query tiles of Q, dO
+//    (TMA, rank-4 tensor maps over the strided (B, N, H, D) views, 128B
+//    swizzle at D 64, 64B at D 32) and of LSE2, delta (bulk copies)
+//    through a two-stage ring of full/empty mbarriers. Warpgroups 1 and 2
+//    are consumers at 240 registers, each owning 64 keys: per query tile
+//    S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory, P^T and
+//    dS^T in registers, then dV += bf16(P^T) dO and dK += bf16(dS^T) Q by
+//    wgmma with A from registers and B read MN-major from the same tiles.
+//    128 keys per block: at vitl 11 key blocks per head (the last holding
+//    90), 1408 blocks of one per SM (130 KB of shared memory and 64K
+//    registers each); 64-key blocks would double the dQ traffic of K2.
+//    Under K2 (kFused) the block also forms the tile's dQ share: both
+//    consumers store bf16(dS^T) into a 128B-swizzled (128 keys x 64
+//    queries) tile, fence the async proxy and meet at a named barrier;
+//    one of them (alternating by tile, so each forms every other share)
+//    runs dQ = dS K over the 128 keys as one wgmma chain (A read
+//    MN-major from the dS^T tile), writes the f32 result to shared memory
+//    and issues one cp.reduce.async.bulk .add.f32 of the 64 x D tile into
+//    the accumulator, laid out (B, H, Np, D): one contiguous 16 KB block
+//    per tile at D 64, in place of 4096 scalar atomics. The dS^T tile and
+//    the f32 tile are double-buffered; the f32 tile's 8-float chunks are
+//    XOR-swizzled by row % 4 (conflict-free stores), which the conversion
+//    undoes. The bulk reductions land in another order from run to run,
+//    so K2's dQ may move by one bf16 ulp between runs; dK and dV do not.
+// 3. K2: flash_attn_bwd_convert_kernel reads the accumulator, scales it
+//    and writes bf16 dq into its strided view, rows < N.
+//    K3: flash_attn_bwd_dq_kernel<D>, one block per (batch*head,
+//    128-query block), the same three warpgroups: each consumer keeps its
+//    64 queries of Q and dO in shared memory while the producer streams
+//    64-key tiles of K and V by TMA; S = Q K^T and dP = dO V^T by wgmma
+//    from shared memory, dS in registers, dQ += bf16(dS) K by wgmma with
+//    A from registers. No atomics: bit for bit the same from run to run.
+// A K2 call launches prep, dK/dV (fused) and convert; a K3 call prep, dQ
+// and dK/dV.
+//
+// Each wgmma group is waited for before normal code touches any of the
+// warpgroup's accumulators again. Issuing dV while dS^T is formed, K2's
+// dQ behind dV and dK and the next tile's scores before a tile's last
+// wait, tried together, made ptxas serialize the wgmma chain (C7514,
+// C7515, C7518) and cost K2 and K3 a fifth of their time on the H100; a
+// third pipeline stage changed nothing (PERF.md, Findings).
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,66 +82,291 @@
 
 namespace {
 
-constexpr int kBlockM = 64;  // queries per tile
-constexpr int kBlockN = 64;  // keys per tile
-constexpr int kWarps = 4;    // each warp owns 16 rows of the block's 64
-constexpr int kThreads = kWarps * 32;
-constexpr float kLog2e = 1.4426950408889634f;
-
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+constexpr int kTileQ = 64;     // queries per tile: one wgmma's 64 rows or N
+constexpr int kTileK = 64;     // keys per consumer warpgroup / per dQ tile
+constexpr int kConsumers = 2;  // consumer warpgroups per block
+constexpr int kBlockK = kConsumers * kTileK;  // keys per dK/dV block
+constexpr int kBlockQ = kConsumers * kTileQ;  // queries per dQ block
+constexpr int kThreads = 128 * (1 + kConsumers);  // producer warpgroup first
+constexpr int kStages = 2;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 x 128 + 240 x 256 <= 64K
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Named barriers (0 is __syncthreads).
+constexpr int kBarDsFull = 1;   // + buffer: both consumers stored dS^T
+constexpr int kBarDsEmpty = 3;  // + buffer: the dQ product has read it
+constexpr int kBarGroup = 5;    // + consumer: within one warpgroup
+
+// Strides in elements, (batch, token, head) for each tensor.
+struct Strides {
+  long long sb, sn, sh;
+};
+
+// Shared-memory geometry of a 64-row bf16 tile at head dim D as TMA
+// writes it and wgmma reads it: rows of D * 2 bytes, 128B swizzle at D 64
+// and 64B at D 32 (the row is the swizzle span), 8-row atoms.
+template <int D>
+struct Tile {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kBytes = kTileQ * kRowBytes;
+  static constexpr uint32_t kAtom = 8 * kRowBytes;        // descriptor SBO
+  static constexpr uint64_t kMode = D == 64 ? 1 : 2;      // wgmma 128B / 64B
+  static constexpr CUtensorMapSwizzle kTma =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
+// The (128 keys x 64 queries) bf16 dS^T tile of K2: 128-byte rows.
+constexpr int kDsRowBytes = kTileQ * 2;
+constexpr uint32_t kDsAtom = 8 * kDsRowBytes;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; valid = false zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+// The dynamic shared memory, its shared-space address rounded up to 1024
+// bytes (the swizzle atoms' alignment); each kernel asks for 1 KB more.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// 4-byte async copy; valid = false zero-fills the destination.
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           bool valid) {
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+// wgmma shared-memory matrix descriptor: start address, leading byte
+// offset 16 (unused by these layouts: swizzled K-major, and MN-major with
+// one swizzle atom across M or N), stride byte offset between 8-row atoms
+// along M/N (K-major) or K (MN-major), and the swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// ------------------------------------------------- mbarriers, TMA, bulk
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// 64 token rows of one head of a (B, N, H, D) view; rows >= N are zeros.
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int h, int row,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n"
+      :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The shared memory of every bulk reduction issued so far has been read.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy shared-memory writes become visible to wgmma and to bulk
+// copies (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// Keeps the compiler from moving reads or writes of wgmma registers
+// across the asynchronous instructions that own them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
+// d (64 x 64 f32) += A (64 x 16, shared) * B (16 x 64, shared).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, shared).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 32 f32) += A (64 x 16, shared) * B (16 x 32, shared).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 32 f32) += A (64 x 16 bf16, registers) * B (16 x 32, shared).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+
+// 64 x N products by N, N = 64 or 32 (the f32 accumulator: N / 2
+// registers a thread, row warp * 16 + lane / 4 (+ 8), columns
+// 8 j + 2 (lane % 4) (+ 1)).
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64<kTransA, kTransB>(d, a, b, accumulate);
+  } else {
+    wgmma_ss_n32<kTransA, kTransB>(d, a, b, accumulate);
+  }
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64<kTransB>(d, a, b, accumulate);
+  } else {
+    wgmma_rs_n32<kTransB>(d, a, b, accumulate);
+  }
+}
+
+template <int kRows>
+__device__ __forceinline__ void zero(float (&d)[kRows]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) d[i] = 0.f;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -121,572 +374,750 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Fragment helpers. A shared tile is 64 rows of D (or 64) bf16 at a row
-// pitch of kStride = width + 8 elements, which keeps ldmatrix's eight
-// 16-byte row reads on distinct banks.
-//
-// A operand (16x16, rows m, cols k) of a tile stored [m][k].
-template <int kStride>
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile,
-                                       int row0, int col0, int lane) {
-  ldmatrix_x4(r, tile + (row0 + lane % 16) * kStride + col0 + (lane / 16) * 8);
+// A 64 x 64 f32 accumulator as the bf16 A operands of four k16 steps of a
+// register-A wgmma (its columns become the product's K).
+__device__ __forceinline__ void to_a_operand(const float (&d)[32],
+                                             uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * (2 * kk + r / 2) + 2 * (r % 2);
+      a[kk][r] = pack_bf16(d[i], d[i + 1]);
+    }
+  }
 }
 
-// A operand (16x16, rows m, cols k) of a tile stored transposed, [k][m].
-template <int kStride>
-__device__ __forceinline__ void load_a_trans(uint32_t (&r)[4],
-                                             const bf16* tile, int m0, int k0,
-                                             int lane) {
-  ldmatrix_x4_trans(r, tile + (k0 + (lane / 16) * 8 + lane % 8) * kStride +
-                           m0 + ((lane / 8) % 2) * 8);
+__device__ __forceinline__ void setmaxnreg_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
 }
 
-// B operands of n-tiles n0/8 and n0/8 + 1 (k-step at k0) of a tile stored
-// [n][k]: r[0], r[1] for the first, r[2], r[3] for the second.
-template <int kStride>
-__device__ __forceinline__ void load_b(uint32_t (&r)[4], const bf16* tile,
-                                       int n0, int k0, int lane) {
-  ldmatrix_x4(r, tile + (n0 + (lane / 16) * 8 + lane % 8) * kStride + k0 +
-                     ((lane / 8) % 2) * 8);
+__device__ __forceinline__ void setmaxnreg_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
 }
 
-// The same B operands from a tile stored [k][n].
-template <int kStride>
-__device__ __forceinline__ void load_b_trans(uint32_t (&r)[4],
-                                             const bf16* tile, int n0, int k0,
-                                             int lane) {
-  ldmatrix_x4_trans(r, tile + (k0 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                  kStride + n0 + (lane / 16) * 8);
-}
+// ------------------------------------------------------------- prep
 
-// Copy rows [row0, row0 + 64) of a (rows, D) strided slab into a padded
-// shared tile; rows >= n_rows are zero-filled.
+// delta and LSE * log2(e) into padded (B, H, Np) rows (+inf and 0 past
+// N), one thread a row; with dq_acc, zero its (B, H, Np, D) f32 values,
+// D / 4 float4 a thread, neighbouring threads on neighbouring float4.
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < n_rows;
-    const bf16* g = src + (long long)(valid ? row : 0) * row_stride + c * 8;
-    cp_async_16(tile + r * kStride + c * 8, g, valid);
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_prep_kernel(const bf16* __restrict__ o,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ lse2,
+                           float* __restrict__ delta,
+                           float* __restrict__ dq_acc, int n_tok, int n_pad,
+                           int n_heads, Strides os, Strides ds,
+                           long long rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows) return;
+  const int bh = static_cast<int>(i / n_pad);
+  const int n = static_cast<int>(i % n_pad);
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  float l = INFINITY;
+  float dl = 0.f;
+  if (n < n_tok) {
+    const uint4* po =
+        reinterpret_cast<const uint4*>(o + b * os.sb + n * os.sn + h * os.sh);
+    const uint4* pd = reinterpret_cast<const uint4*>(dout + b * ds.sb +
+                                                     n * ds.sn + h * ds.sh);
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const uint4 x = po[c];
+      const uint4 y = pd[c];
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+        const float2 yf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+        dl = fmaf(xf.x, yf.x, dl);
+        dl = fmaf(xf.y, yf.y, dl);
+      }
+    }
+    l = lse[(long long)bh * n_tok + n] * kLog2e;
+  }
+  lse2[i] = l;
+  delta[i] = dl;
+  if (dq_acc != nullptr) {
+    float4* z = reinterpret_cast<float4*>(dq_acc);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      z[c * rows + i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
 }
 
-// Copy entries [row0, row0 + 64) of a contiguous f32 vector; entries past
-// n_rows are zero-filled.
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int row0, int n_rows) {
-  for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
-    const int row = row0 + i;
-    const bool valid = row < n_rows;
-    cp_async_4(dst + i, src + (valid ? row : 0), valid);
-  }
-}
+// ------------------------------------------------------------- dK, dV
 
-// Row pitch of the fused kernel's (64 keys, 64 queries) dS^T tile.
-constexpr int kDsStride = kBlockM + 8;
-
-// Strides in elements, (batch, token, head) for each tensor.
-struct Strides {
-  long long sb, sn, sh;
+template <int D, bool kFused>
+struct DkvSmem {
+  static constexpr int kKv = kBlockK * Tile<D>::kRowBytes;  // K or V
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKv;
+  static constexpr int kQ = kV + kKv;  // [kStages] 64-query tiles
+  static constexpr int kDo = kQ + kStages * Tile<D>::kBytes;
+  static constexpr int kDs = kDo + kStages * Tile<D>::kBytes;
+  static constexpr int kDsBytes = kBlockK * kDsRowBytes;  // [2], fused
+  static constexpr int kDq = kDs + (kFused ? 2 * kDsBytes : 0);
+  static constexpr int kDqBytes = kTileQ * D * 4;  // [kConsumers], fused
+  static constexpr int kLse = kDq + (kFused ? kConsumers * kDqBytes : 0);
+  static constexpr int kDelta = kLse + kStages * kTileQ * 4;
+  static constexpr int kBars = kDelta + kStages * kTileQ * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
 };
 
-// dK and dV of one 64-key block (K3's dK/dV kernel), and with kFused (K2)
-// also this block's share of dQ, added atomically into dq_acc.
+// dK and dV of one (batch*head, 128-key block); with kFused (K2) also the
+// block's share of dQ, reduced into dq_acc (B, H, Np, D) f32.
 template <int D, bool kFused>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dkv_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse2,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          float* __restrict__ dq_acc, int n_tok, int n_heads,
-                          Strides qs, Strides ks, Strides vs, Strides ds,
-                          Strides dks, Strides dvs, float scale,
+                          float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int n_tok, int n_pad,
+                          int n_heads, Strides dks, Strides dvs, float scale,
                           float scale_log2) {
-  constexpr int kStride = D + 8;
-  constexpr int kTile = kBlockN * kStride;  // elements of one 64-row tile
-  constexpr int kDSteps = D / 16;           // k-steps over D
-  constexpr int kDTiles = D / 8;            // n-tiles over D
-  constexpr int kQTiles = kBlockM / 8;      // n-tiles over a query tile
-  constexpr int kQSteps = kBlockM / 16;     // k-steps over a query tile
-  constexpr int kKeySteps = kBlockN / 16;
+  using L = DkvSmem<D, kFused>;
+  using T = Tile<D>;
+  constexpr int kAcc = D / 2;  // registers of a 64 x D accumulator
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_v = s_k + kTile;
-  bf16* s_q = s_v + kTile;         // [2][kTile]
-  bf16* s_do = s_q + 2 * kTile;    // [2][kTile]
-  bf16* s_ds = s_do + 2 * kTile;   // [kBlockN][kDsStride], fused only
-  float* s_lse =
-      reinterpret_cast<float*>(s_ds + (kFused ? kBlockN * kDsStride : 0));
-  float* s_dl = s_lse + 2 * kBlockM;  // delta, [2][kBlockM]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + kStages;
 
-  const int n_kblocks = (n_tok + kBlockN - 1) / kBlockN;
+  const int n_kblocks = (n_tok + kBlockK - 1) / kBlockK;
   const int bh = blockIdx.x / n_kblocks;
-  const int k0 = (blockIdx.x % n_kblocks) * kBlockN;
+  const int k0 = (blockIdx.x % n_kblocks) * kBlockK;
   const int b = bh / n_heads;
   const int h = bh % n_heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // accumulator row within the warp's 8-row half
-  const int t = lane % 4;  // accumulator column pair
+  const int n_qtiles = n_pad / kTileQ;
 
-  const bf16* qb = q + b * qs.sb + h * qs.sh;
-  const bf16* kb = k + b * ks.sb + h * ks.sh;
-  const bf16* vb = v + b * vs.sb + h * vs.sh;
-  const bf16* dob = dout + b * ds.sb + h * ds.sh;
-  const float* lse_bh = lse + (long long)bh * n_tok;
-  const float* delta_bh = delta + (long long)bh * n_tok;
-
-  load_tile<D>(s_k, kb, ks.sn, k0, n_tok);
-  load_tile<D>(s_v, vb, vs.sn, k0, n_tok);
-  load_tile<D>(s_q, qb, qs.sn, 0, n_tok);
-  load_tile<D>(s_do, dob, ds.sn, 0, n_tok);
-  load_vec(s_lse, lse_bh, 0, n_tok);
-  load_vec(s_dl, delta_bh, 0, n_tok);
-  cp_async_commit();
-
-  float dk_acc[kDTiles][4];
-  float dv_acc[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // This lane's two key rows (accumulator rows g and g + 8).
-  const bool key_ok[2] = {k0 + warp * 16 + g < n_tok,
-                          k0 + warp * 16 + g + 8 < n_tok};
+  __syncthreads();
 
-  const int n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  for (int qt = 0; qt < n_qtiles; ++qt) {
-    const int stage = qt & 1;
-    if (qt + 1 < n_qtiles) {
-      const int nxt = stage ^ 1;
-      const int q1 = (qt + 1) * kBlockM;
-      load_tile<D>(s_q + nxt * kTile, qb, qs.sn, q1, n_tok);
-      load_tile<D>(s_do + nxt * kTile, dob, ds.sn, q1, n_tok);
-      load_vec(s_lse + nxt * kBlockM, lse_bh, q1, n_tok);
-      load_vec(s_dl + nxt * kBlockM, delta_bh, q1, n_tok);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const bf16* sq = s_q + stage * kTile;
-    const bf16* sdo = s_do + stage * kTile;
-    const float* sl = s_lse + stage * kBlockM;
-    const float* sd = s_dl + stage * kBlockM;
-    const int q0 = qt * kBlockM;
-
-    // S^T = K Q^T: this warp's 16 keys x the tile's 64 queries.
-    float p[kQTiles][4];
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-      uint32_t kf[4];
-      load_a<kStride>(kf, s_k, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kQTiles; j += 2) {
-        uint32_t qf[4];
-        load_b<kStride>(qf, sq, j * 8, kk * 16, lane);
-        mma_bf16(p[j], kf, qf[0], qf[1]);
-        mma_bf16(p[j + 1], kf, qf[2], qf[3]);
+  if (threadIdx.x < 128) {
+    // Producer: one thread issues every copy.
+    setmaxnreg_producer();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_bar, 2 * L::kKv);
+      for (int half = 0; half < kConsumers; ++half) {
+        tma_rows(smem + L::kK + half * T::kBytes, &tm_k, kv_bar, h,
+                 k0 + half * kTileK, b);
+        tma_rows(smem + L::kV + half * T::kBytes, &tm_v, kv_bar, h,
+                 k0 + half * kTileK, b);
+      }
+      const float* lse_bh = lse2 + (long long)bh * n_pad;
+      const float* dl_bh = delta + (long long)bh * n_pad;
+      for (int qt = 0; qt < n_qtiles; ++qt) {
+        const int s = qt % kStages;
+        if (qt >= kStages) mbar_wait(&empty[s], ((qt / kStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * T::kBytes + 2 * kTileQ * 4);
+        tma_rows(smem + L::kQ + s * T::kBytes, &tm_q, &full[s], h,
+                 qt * kTileQ, b);
+        tma_rows(smem + L::kDo + s * T::kBytes, &tm_do, &full[s], h,
+                 qt * kTileQ, b);
+        bulk_load(smem + L::kLse + s * kTileQ * 4, lse_bh + qt * kTileQ,
+                  kTileQ * 4, &full[s]);
+        bulk_load(smem + L::kDelta + s * kTileQ * 4, dl_bh + qt * kTileQ,
+                  kTileQ * 4, &full[s]);
       }
     }
+  } else {
+    setmaxnreg_consumer();
+    const int w = threadIdx.x / 128 - 1;  // this consumer's 64 keys
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    // This thread's accumulator rows: keys key_row and key_row + 8.
+    const int key_row = w * kTileK + warp * 16 + g;
+    const bool key_ok[2] = {k0 + key_row < n_tok, k0 + key_row + 8 < n_tok};
+    const uint32_t s_kblock = smem_u32(smem + L::kK);
+    const uint32_t s_k = s_kblock + w * T::kBytes;
+    const uint32_t s_v = smem_u32(smem + L::kV) + w * T::kBytes;
 
-    // P^T = exp(S^T scale - LSE), zero for queries or keys >= N.
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const bool ok = key_ok[e / 2] && q0 + col < n_tok;
-        p[j][e] = ok ? exp2f(fmaf(p[j][e], scale_log2, -sl[col] * kLog2e))
-                     : 0.f;
-      }
-    }
+    float dk_acc[kAcc], dv_acc[kAcc], s_acc[32], dp_acc[32];
+    zero(dk_acc);
+    zero(dv_acc);
+    zero(s_acc);
+    zero(dp_acc);
+    mbar_wait(kv_bar, 0);
 
-    // dV += bf16(P^T) dO. The accumulator layout of query tiles 2kk and
-    // 2kk+1 is exactly the A operand layout of k-step kk.
-    {
-      uint32_t pf[kQSteps][4];
+    for (int qt = 0; qt < n_qtiles; ++qt) {
+      const int s = qt % kStages;
+      const int q0 = qt * kTileQ;
+      mbar_wait(&full[s], (qt / kStages) & 1);
+      const uint32_t s_q = smem_u32(smem + L::kQ + s * T::kBytes);
+      const uint32_t s_do = smem_u32(smem + L::kDo + s * T::kBytes);
+      const float* s_lse =
+          reinterpret_cast<const float*>(smem + L::kLse + s * kTileQ * 4);
+      const float* s_dl =
+          reinterpret_cast<const float*>(smem + L::kDelta + s * kTileQ * 4);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries over D, both
+      // operands K-major; the k16 steps advance 32 bytes along a row.
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kQTiles; ++j) {
-        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(p[j][0], p[j][1]);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[j][2], p[j][3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<64, 0, 0>(s_acc, make_desc(s_k + kk * 32, T::kAtom, T::kMode),
+                           make_desc(s_q + kk * 32, T::kAtom, T::kMode), kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<64, 0, 0>(dp_acc,
+                           make_desc(s_v + kk * 32, T::kAtom, T::kMode),
+                           make_desc(s_do + kk * 32, T::kAtom, T::kMode), kk);
+      }
+      wgmma_commit();
+
+      // P^T = exp2(S^T scale log2(e) - LSE2), zero for keys or queries
+      // >= N, while dP^T is still in flight.
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const bool ok = key_ok[e / 2] && q0 + col < n_tok;
+          s_acc[4 * j + e] =
+              ok ? exp2f(fmaf(s_acc[4 * j + e], scale_log2, -s_lse[col]))
+                 : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp_acc);
+      // dS^T = P^T (dP^T - delta).
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          dp_acc[4 * j + e] = s_acc[4 * j + e] * (dp_acc[4 * j + e] - s_dl[col]);
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      to_a_operand(s_acc, pa);
+      to_a_operand(dp_acc, da);
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q: A from registers, B
+      // the same tiles read MN-major; a k16 step is 16 query rows.
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D, 1>(dv_acc, pa[kk],
+                       make_desc(s_do + kk * 16 * T::kRowBytes, T::kAtom,
+                                 T::kMode), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < kQSteps; ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D, 1>(dk_acc, da[kk],
+                       make_desc(s_q + kk * 16 * T::kRowBytes, T::kAtom,
+                                 T::kMode), 1);
+      }
+      wgmma_commit();
+
+      const int buf = qt & 1;
+      const bool mine = kFused && buf == w;  // this consumer forms dQ
+      unsigned char* s_ds = smem + L::kDs + buf * L::kDsBytes;
+      if constexpr (kFused) {
+        // bf16(dS^T) into the 128B-swizzled [key][query] tile: row r,
+        // 16-byte chunk c at r * 128 + ((c ^ r % 8) * 16). Wait first
+        // until the other consumer's dQ product of two tiles ago has
+        // read this buffer.
+        if (!mine && qt >= 2) bar_sync(kBarDsEmpty + buf, 2 * 128);
 #pragma unroll
-        for (int j = 0; j < kDTiles; j += 2) {
-          uint32_t f[4];
-          load_b_trans<kStride>(f, sdo, j * 8, kk * 16, lane);
-          mma_bf16(dv_acc[j], pf[kk], f[0], f[1]);
-          mma_bf16(dv_acc[j + 1], pf[kk], f[2], f[3]);
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int row = key_row + 8 * (r % 2);
+            const int chunk = (2 * kk + r / 2) ^ g;  // row % 8 == g
+            *reinterpret_cast<uint32_t*>(s_ds + row * kDsRowBytes +
+                                         chunk * 16 + 4 * t) = da[kk][r];
+          }
+        }
+        fence_proxy_async();
+        if (!mine) bar_arrive(kBarDsFull + buf, 2 * 128);
+      }
+
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // Q, dO, LSE2, delta read
+
+      if constexpr (kFused) {
+        if (mine) {
+          // dQ share of this query tile over the block's 128 keys:
+          // dS (64 queries x 128 keys) read MN-major from the dS^T tile,
+          // K (128 keys x D) read MN-major; a k16 step is 16 key rows.
+          bar_sync(kBarDsFull + buf, 2 * 128);
+          const uint32_t ds_addr = smem_u32(s_ds);
+          float dq[kAcc];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBlockK / 16; ++kk) {
+            wgmma_ss<D, 1, 1>(
+                dq, make_desc(ds_addr + kk * 16 * kDsRowBytes, kDsAtom, 1),
+                make_desc(s_kblock + kk * 16 * T::kRowBytes, T::kAtom,
+                          T::kMode),
+                kk);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+          if (qt + 2 < n_qtiles) bar_arrive(kBarDsEmpty + buf, 2 * 128);
+
+          // The f32 tile, 8-float chunks swizzled by row % 4, then one
+          // bulk reduction into the accumulator. Its previous reduction
+          // (two tiles ago) must have read the buffer first.
+          float* s_dq = reinterpret_cast<float*>(smem + L::kDq +
+                                                 w * L::kDqBytes);
+          if (tid == 0) bulk_wait_read();
+          bar_sync(kBarGroup + w, 128);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int row = warp * 16 + g + 8 * i;  // row % 4 == g % 4
+              *reinterpret_cast<float2*>(s_dq + row * D +
+                                         ((j ^ (g & 3)) * 8) + 2 * t) =
+                  make_float2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+            }
+          }
+          fence_proxy_async();
+          bar_sync(kBarGroup + w, 128);
+          if (tid == 0) {
+            bulk_reduce_add(dq_acc + ((long long)bh * n_pad + q0) * D, s_dq,
+                            L::kDqBytes);
+          }
         }
       }
     }
 
-    // dP^T = V dO^T.
-    float dp[kQTiles][4];
 #pragma unroll
-    for (int j = 0; j < kQTiles; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      if (!key_ok[i]) continue;
+      const int row = k0 + key_row + 8 * i;
+      bf16* dkr = dk + b * dks.sb + row * dks.sn + h * dks.sh;
+      bf16* dvr = dv + b * dvs.sb + row * dvs.sn + h * dvs.sh;
 #pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-      uint32_t vf[4];
-      load_a<kStride>(vf, s_v, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < kQTiles; j += 2) {
-        uint32_t of[4];
-        load_b<kStride>(of, sdo, j * 8, kk * 16, lane);
-        mma_bf16(dp[j], vf, of[0], of[1]);
-        mma_bf16(dp[j + 1], vf, of[2], of[3]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * j + 2 * t) =
+            pack_bf16(dk_acc[4 * j + 2 * i] * scale,
+                      dk_acc[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * j + 2 * t) =
+            pack_bf16(dv_acc[4 * j + 2 * i], dv_acc[4 * j + 2 * i + 1]);
       }
     }
-
-    // dS^T = P^T (dP^T - delta), f32; then bf16 fragments.
-    uint32_t dsf[kQSteps][4];
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-      const int col = j * 8 + 2 * t;
-      const float d0 = p[j][0] * (dp[j][0] - sd[col]);
-      const float d1 = p[j][1] * (dp[j][1] - sd[col + 1]);
-      const float d2 = p[j][2] * (dp[j][2] - sd[col]);
-      const float d3 = p[j][3] * (dp[j][3] - sd[col + 1]);
-      dsf[j / 2][(j % 2) * 2 + 0] = pack_bf16(d0, d1);
-      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(d2, d3);
-    }
-
-    // dK += bf16(dS^T) Q.
-#pragma unroll
-    for (int kk = 0; kk < kQSteps; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kDTiles; j += 2) {
-        uint32_t f[4];
-        load_b_trans<kStride>(f, sq, j * 8, kk * 16, lane);
-        mma_bf16(dk_acc[j], dsf[kk], f[0], f[1]);
-        mma_bf16(dk_acc[j + 1], dsf[kk], f[2], f[3]);
-      }
-    }
-
-    if constexpr (kFused) {
-      // dS^T of the whole block to shared memory ([key][query]), then each
-      // warp forms dQ for 16 of the tile's queries over all 64 keys.
-#pragma unroll
-      for (int j = 0; j < kQTiles; ++j) {
-        const int col = j * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(s_ds + (warp * 16 + g) * kDsStride +
-                                     col) = dsf[j / 2][(j % 2) * 2 + 0];
-        *reinterpret_cast<uint32_t*>(s_ds + (warp * 16 + g + 8) * kDsStride +
-                                     col) = dsf[j / 2][(j % 2) * 2 + 1];
-      }
-      __syncthreads();
-      float dq[kDTiles][4];
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeySteps; ++kk) {
-        uint32_t a[4];
-        load_a_trans<kDsStride>(a, s_ds, warp * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < kDTiles; j += 2) {
-          uint32_t f[4];
-          load_b_trans<kStride>(f, s_k, j * 8, kk * 16, lane);
-          mma_bf16(dq[j], a, f[0], f[1]);
-          mma_bf16(dq[j + 1], a, f[2], f[3]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = q0 + warp * 16 + g + 8 * r;
-        if (row >= n_tok) continue;
-        float* dst = dq_acc + (((long long)b * n_tok + row) * n_heads + h) * D;
-#pragma unroll
-        for (int j = 0; j < kDTiles; ++j) {
-          atomicAdd(dst + j * 8 + 2 * t, dq[j][2 * r] * scale);
-          atomicAdd(dst + j * 8 + 2 * t + 1, dq[j][2 * r + 1] * scale);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage (and dS^T)
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!key_ok[r]) continue;
-    const int row = k0 + warp * 16 + g + 8 * r;
-    bf16* dkr = dk + b * dks.sb + row * dks.sn + h * dks.sh;
-    bf16* dvr = dv + b * dvs.sb + row * dvs.sn + h * dvs.sh;
-#pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(dkr + j * 8 + 2 * t) = pack_bf16(
-          dk_acc[j][2 * r] * scale, dk_acc[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvr + j * 8 + 2 * t) =
-          pack_bf16(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
+    if (kFused && tid == 0) bulk_wait();
   }
 }
 
-// K3's dQ kernel: dQ of one 64-query block, streaming key tiles.
+// ------------------------------------------------------------- dQ (K3)
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_bwd_dq_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
+struct DqSmem {
+  static constexpr int kQ = 0;  // this block's 128 queries of Q
+  static constexpr int kDo = kQ + kBlockQ * Tile<D>::kRowBytes;
+  static constexpr int kK = kDo + kBlockQ * Tile<D>::kRowBytes;  // [kStages]
+  static constexpr int kV = kK + kStages * Tile<D>::kBytes;      // [kStages]
+  static constexpr int kBars = kV + kStages * Tile<D>::kBytes;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// K3's dQ of one (batch*head, 128-query block), streaming 64-key tiles.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ lse2,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int n_tok, int n_heads,
-                         Strides qs, Strides ks, Strides vs, Strides ds,
-                         Strides dqs, float scale, float scale_log2) {
-  constexpr int kStride = D + 8;
-  constexpr int kTile = kBlockN * kStride;
-  constexpr int kDSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kKeyTiles = kBlockN / 8;
-  constexpr int kKeySteps = kBlockN / 16;
+                         bf16* __restrict__ dq, int n_tok, int n_pad,
+                         int n_heads, Strides dqs, float scale,
+                         float scale_log2) {
+  using L = DqSmem<D>;
+  using T = Tile<D>;
+  constexpr int kAcc = D / 2;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_do = s_q + kTile;
-  bf16* s_k = s_do + kTile;   // [2][kTile]
-  bf16* s_v = s_k + 2 * kTile;  // [2][kTile]
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
 
-  const int n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
+  const int n_qblocks = (n_tok + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x / n_qblocks;
+  const int q0 = (blockIdx.x % n_qblocks) * kBlockQ;
   const int b = bh / n_heads;
   const int h = bh % n_heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
+  const int n_ktiles = (n_tok + kTileK - 1) / kTileK;
 
-  const bf16* qb = q + b * qs.sb + h * qs.sh;
-  const bf16* kb = k + b * ks.sb + h * ks.sh;
-  const bf16* vb = v + b * vs.sb + h * vs.sh;
-  const bf16* dob = dout + b * ds.sb + h * ds.sh;
-
-  load_tile<D>(s_q, qb, qs.sn, q0, n_tok);
-  load_tile<D>(s_do, dob, ds.sn, q0, n_tok);
-  load_tile<D>(s_k, kb, ks.sn, 0, n_tok);
-  load_tile<D>(s_v, vb, vs.sn, 0, n_tok);
-  cp_async_commit();
-
-  // This lane's two query rows: LSE (log2 domain) and delta.
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = row[r] < n_tok;
-    lse2[r] = ok ? lse[(long long)bh * n_tok + row[r]] * kLog2e : 0.f;
-    dl[r] = ok ? delta[(long long)bh * n_tok + row[r]] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  uint32_t q_frag[kDSteps][4];
-  uint32_t do_frag[kDSteps][4];
-  float dq_acc[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
-  }
-
-  const int n_ktiles = (n_tok + kBlockN - 1) / kBlockN;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_ktiles) {
-      load_tile<D>(s_k + (stage ^ 1) * kTile, kb, ks.sn, (kt + 1) * kBlockN,
-                   n_tok);
-      load_tile<D>(s_v + (stage ^ 1) * kTile, vb, vs.sn, (kt + 1) * kBlockN,
-                   n_tok);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kDSteps; ++kk) {
-        load_a<kStride>(q_frag[kk], s_q, warp * 16, kk * 16, lane);
-        load_a<kStride>(do_frag[kk], s_do, warp * 16, kk * 16, lane);
+  if (threadIdx.x < 128) {
+    setmaxnreg_producer();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, 2 * kConsumers * T::kBytes);
+      for (int half = 0; half < kConsumers; ++half) {
+        tma_rows(smem + L::kQ + half * T::kBytes, &tm_q, q_bar, h,
+                 q0 + half * kTileQ, b);
+        tma_rows(smem + L::kDo + half * T::kBytes, &tm_do, q_bar, h,
+                 q0 + half * kTileQ, b);
+      }
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 2 * T::kBytes);
+        tma_rows(smem + L::kK + s * T::kBytes, &tm_k, &full[s], h,
+                 kt * kTileK, b);
+        tma_rows(smem + L::kV + s * T::kBytes, &tm_v, &full[s], h,
+                 kt * kTileK, b);
       }
     }
-    const bf16* sk = s_k + stage * kTile;
-    const bf16* sv = s_v + stage * kTile;
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 queries x 64 keys.
-    float p[kKeyTiles][4];
-    float dp[kKeyTiles][4];
+  } else {
+    setmaxnreg_consumer();
+    const int w = threadIdx.x / 128 - 1;  // this consumer's 64 queries
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int row0 = q0 + w * kTileQ + warp * 16 + g;  // and row0 + 8
+    float lse_r[2], dl_r[2];
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[j][e] = dp[j][e] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      const bool ok = row < n_tok;
+      lse_r[i] = ok ? lse2[(long long)bh * n_pad + row] : INFINITY;
+      dl_r[i] = ok ? delta[(long long)bh * n_pad + row] : 0.f;
     }
+    const uint32_t s_q = smem_u32(smem + L::kQ) + w * T::kBytes;
+    const uint32_t s_do = smem_u32(smem + L::kDo) + w * T::kBytes;
+
+    float dq_acc[kAcc], s_acc[32], dp_acc[32];
+    zero(dq_acc);
+    zero(s_acc);
+    zero(dp_acc);
+    mbar_wait(q_bar, 0);
+
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      const uint32_t s_k = smem_u32(smem + L::kK + s * T::kBytes);
+      const uint32_t s_v = smem_u32(smem + L::kV + s * T::kBytes);
+
+      // S = Q K^T and dP = dO V^T: 64 queries x 64 keys, K-major.
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; j += 2) {
-#pragma unroll
-      for (int kk = 0; kk < kDSteps; ++kk) {
-        uint32_t kf[4];
-        load_b<kStride>(kf, sk, j * 8, kk * 16, lane);
-        mma_bf16(p[j], q_frag[kk], kf[0], kf[1]);
-        mma_bf16(p[j + 1], q_frag[kk], kf[2], kf[3]);
-        uint32_t vf[4];
-        load_b<kStride>(vf, sv, j * 8, kk * 16, lane);
-        mma_bf16(dp[j], do_frag[kk], vf[0], vf[1]);
-        mma_bf16(dp[j + 1], do_frag[kk], vf[2], vf[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<64, 0, 0>(s_acc, make_desc(s_q + kk * 32, T::kAtom, T::kMode),
+                           make_desc(s_k + kk * 32, T::kAtom, T::kMode), kk);
       }
-    }
-
-    // P = exp(S scale - LSE) (zero for keys >= N), dS = P (dP - delta).
-    const int key0 = kt * kBlockN;
-    uint32_t dsf[kKeySteps][4];
+      wgmma_commit();
 #pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      float d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + j * 8 + 2 * t + (e & 1);
-        const float pe =
-            key < n_tok ? exp2f(fmaf(p[j][e], scale_log2, -lse2[e / 2])) : 0.f;
-        d[e] = pe * (dp[j][e] - dl[e / 2]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<64, 0, 0>(dp_acc,
+                           make_desc(s_do + kk * 32, T::kAtom, T::kMode),
+                           make_desc(s_v + kk * 32, T::kAtom, T::kMode), kk);
       }
-      dsf[j / 2][(j % 2) * 2 + 0] = pack_bf16(d[0], d[1]);
-      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
-    }
+      wgmma_commit();
 
-    // dQ += bf16(dS) K.
+      // P = exp2(S scale log2(e) - LSE2) (zero for keys >= N; LSE2 is
+      // +inf for queries >= N), then dS = P (dP - delta).
+      const int key0 = kt * kTileK;
+      wgmma_wait<1>();
+      fence_regs(s_acc);
 #pragma unroll
-    for (int kk = 0; kk < kKeySteps; ++kk) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < kDTiles; j += 2) {
-        uint32_t f[4];
-        load_b_trans<kStride>(f, sk, j * 8, kk * 16, lane);
-        mma_bf16(dq_acc[j], dsf[kk], f[0], f[1]);
-        mma_bf16(dq_acc[j + 1], dsf[kk], f[2], f[3]);
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = key0 + 8 * j + 2 * t + (e & 1) < n_tok;
+          s_acc[4 * j + e] =
+              ok ? exp2f(fmaf(s_acc[4 * j + e], scale_log2, -lse_r[e / 2]))
+                 : 0.f;
+        }
       }
+      wgmma_wait<0>();
+      fence_regs(dp_acc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp_acc[4 * j + e] = s_acc[4 * j + e] * (dp_acc[4 * j + e] - dl_r[e / 2]);
+        }
+      }
+      uint32_t da[4][4];
+      to_a_operand(dp_acc, da);
+
+      // dQ += bf16(dS) K: K (64 keys x D) read MN-major.
+      fence_regs(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D, 1>(dq_acc, da[kk],
+                       make_desc(s_k + kk * 16 * T::kRowBytes, T::kAtom,
+                                 T::kMode), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncthreads();  // the next iteration refills this stage
-  }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= n_tok) continue;
-    bf16* dqr = dq + b * dqs.sb + row[r] * dqs.sn + h * dqs.sh;
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= n_tok) continue;
+      bf16* dqr = dq + b * dqs.sb + row * dqs.sn + h * dqs.sh;
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(dqr + j * 8 + 2 * t) =
-          pack_bf16(dq_acc[j][2 * r] * scale, dq_acc[j][2 * r + 1] * scale);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * t) =
+            pack_bf16(dq_acc[4 * j + 2 * i] * scale,
+                      dq_acc[4 * j + 2 * i + 1] * scale);
+      }
     }
   }
 }
 
-template <int D, bool kFused>
-constexpr int dkv_smem() {
-  // K, V, two stages each of Q and dO, the dS^T tile (fused), and two
-  // stages each of LSE and delta.
-  return (6 * kBlockN * (D + 8) + (kFused ? kBlockN * kDsStride : 0)) * 2 +
-         4 * kBlockM * 4;
+// ------------------------------------------------------------- convert
+
+// K2's dq: the f32 accumulator (B, H, Np, D), chunks swizzled by row % 4,
+// scaled and rounded into the bf16 (B, N, H, D) view. One thread per
+// 8-value chunk of a row < N.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attn_bwd_convert_kernel(const float* __restrict__ dq_acc,
+                              bf16* __restrict__ dq, int n_tok, int n_pad,
+                              int n_heads, Strides dqs, float scale,
+                              long long chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= chunks) return;
+  const int c = static_cast<int>(i % (D / 8));
+  const long long row = i / (D / 8);
+  const int n = static_cast<int>(row % n_tok);
+  const int bh = static_cast<int>(row / n_tok);
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const float4* src = reinterpret_cast<const float4*>(
+      dq_acc + ((long long)bh * n_pad + n) * D + (c ^ (n & 3)) * 8);
+  const float4 x = src[0];
+  const float4 y = src[1];
+  uint4 out;
+  out.x = pack_bf16(x.x * scale, x.y * scale);
+  out.y = pack_bf16(x.z * scale, x.w * scale);
+  out.z = pack_bf16(y.x * scale, y.y * scale);
+  out.w = pack_bf16(y.z * scale, y.w * scale);
+  *reinterpret_cast<uint4*>(dq + b * dqs.sb + n * dqs.sn + h * dqs.sh +
+                            8 * c) = out;
+}
+
+// ------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links no libcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, N, H, D) bf16 view as a rank-4 (D, H, N, B) tensor map read in
+// boxes of 64 token rows of one head, swizzled for wgmma.
+template <int D>
+CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
+                     int batch, int n_tok, int n_heads, const long long* st) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(n_heads),
+                              static_cast<cuuint64_t>(n_tok),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, kTileQ, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kTma,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+inline unsigned blocks_of(long long n, int per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
 template <int D>
-constexpr int dq_smem() {
-  return 6 * kBlockN * (D + 8) * 2;  // Q, dO, two stages each of K and V
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, void* dk, void* dv, int batch, int n_tok,
-                   int n_heads, const long long* st, bool fused, float scale,
-                   cudaStream_t stream) {
-  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
-      vs{st[6], st[7], st[8]}, ds{st[9], st[10], st[11]},
-      dqs{st[12], st[13], st[14]}, dks{st[15], st[16], st[17]},
-      dvs{st[18], st[19], st[20]};
-  const long long n_tiles = (n_tok + kBlockN - 1) / kBlockN;
-  const long long blocks = (long long)batch * n_heads * n_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* o, const void* lse, void* lse2, void* delta,
+           void* dq_acc, void* dq, void* dk, void* dv, int batch, int n_tok,
+           int n_pad, int n_heads, const long long* st, bool fused,
+           float scale, cudaStream_t stream) {
+  const Strides ds{st[9], st[10], st[11]}, os{st[12], st[13], st[14]},
+      dqs{st[15], st[16], st[17]}, dks{st[18], st[19], st[20]},
+      dvs{st[21], st[22], st[23]};
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const void* bases[4] = {q, k, v, dout};
+  CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult r = encode_rows<D>(fn, maps[i], bases[i], batch, n_tok,
+                                      n_heads, st + 3 * i);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  }
+  const long long heads = static_cast<long long>(batch) * n_heads;
+  const long long key_blocks = heads * ((n_tok + kBlockK - 1) / kBlockK);
+  const long long query_blocks = heads * ((n_tok + kBlockQ - 1) / kBlockQ);
+  if (key_blocks > 0x7fffffffLL || query_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
   const float scale_log2 = scale * kLog2e;
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* dl_ = static_cast<const float*>(delta);
-  cudaError_t err;
+  const float* lse2_ = static_cast<const float*>(lse2);
+  const float* delta_ = static_cast<const float*>(delta);
+  float* acc = fused ? static_cast<float*>(dq_acc) : nullptr;
+
+  const long long rows = heads * n_pad;
+  flash_attn_bwd_prep_kernel<D><<<blocks_of(rows, 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(lse2),
+      static_cast<float*>(delta), acc, n_tok, n_pad, n_heads, os, ds, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
   if (fused) {
-    constexpr int smem = dkv_smem<D, true>();
     auto kernel = flash_attn_bwd_dkv_kernel<D, true>;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-        q_, k_, v_, do_, lse_, dl_, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), static_cast<float*>(dq), n_tok, n_heads, qs,
-        ks, vs, ds, dks, dvs, scale, scale_log2);
+    constexpr int smem = DkvSmem<D, true>::kAlloc;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(key_blocks), kThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_do, lse2_, delta_, acc, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), n_tok, n_pad, n_heads, dks, dvs, scale,
+        scale_log2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long chunks = heads * n_tok * (D / 8);
+    flash_attn_bwd_convert_kernel<D>
+        <<<blocks_of(chunks, 256), 256, 0, stream>>>(
+            acc, static_cast<bf16*>(dq), n_tok, n_pad, n_heads, dqs, scale,
+            chunks);
     return cudaGetLastError();
   }
-  constexpr int smem_dq = dq_smem<D>();
   auto dq_kernel = flash_attn_bwd_dq_kernel<D>;
-  err = cudaFuncSetAttribute(
-      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-  if (err != cudaSuccess) return err;
-  dq_kernel<<<(unsigned)blocks, kThreads, smem_dq, stream>>>(
-      q_, k_, v_, do_, lse_, dl_, static_cast<bf16*>(dq), n_tok, n_heads,
-      qs, ks, vs, ds, dqs, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int smem = dkv_smem<D, false>();
+  constexpr int smem_dq = DqSmem<D>::kAlloc;
+  if ((err = allow_smem(dq_kernel, smem_dq)) != cudaSuccess) return err;
+  dq_kernel<<<static_cast<unsigned>(query_blocks), kThreads, smem_dq,
+              stream>>>(tm_q, tm_k, tm_v, tm_do, lse2_, delta_,
+                        static_cast<bf16*>(dq), n_tok, n_pad, n_heads, dqs,
+                        scale, scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   auto kernel = flash_attn_bwd_dkv_kernel<D, false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q_, k_, v_, do_, lse_, dl_, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), nullptr, n_tok, n_heads, qs, ks, vs, ds, dks,
-      dvs, scale, scale_log2);
+  constexpr int smem = DkvSmem<D, false>::kAlloc;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(key_blocks), kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse2_, delta_, nullptr,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), n_tok, n_pad, n_heads,
+      dks, dvs, scale, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, dout: (B, N, H, D) bf16 with unit stride on D; lse, delta:
-// contiguous (B, H, N) f32; dk, dv: (B, N, H, D) bf16 with unit stride on
-// D. `strides` holds 21 element strides, (batch, token, head) of q, k, v,
-// dout, dq, dk, dv in that order.
-//   fused = 1 (K2): dq is a zeroed, contiguous (B, N, H, D) f32 scratch
-//     that the kernel adds into; its strides are not read.
-//   fused = 0 (K3): dq is (B, N, H, D) bf16 with the given strides.
-// Launches on `stream`, allocates nothing, writes only rows < N, and
-// returns the first CUDA error (cudaErrorInvalidValue for an unsupported D).
+// q, k, v, dout, o: (B, N, H, D) bf16 views, unit stride on D, the other
+// strides multiples of 16 bytes, bases 16-byte aligned (q, k, v and dout
+// are read by TMA); lse: contiguous (B, H, N) f32; lse2, delta: (B, H,
+// n_pad) f32 scratch, n_pad = N rounded up to 64; dq, dk, dv: bf16
+// (B, N, H, D) views with 16-byte aligned rows. `strides` holds 24 element
+// strides, (batch, token, head) of q, k, v, dout, o, dq, dk, dv.
+//   fused = 1 (K2): dq_acc is a (B, H, n_pad, D) f32 scratch (the prep
+//     kernel zeroes it); launches prep, dK/dV with the dQ share, convert.
+//   fused = 0 (K3): dq_acc is not read; launches prep, dQ, dK/dV.
+// Launches on `stream`, allocates nothing, writes only rows < N. Returns
+// 0, a CUDA runtime error, or minus the driver's error when a tensor map
+// cannot be encoded (cudaErrorInvalidValue for an unsupported D or n_pad).
 extern "C" int e3d_flash_attn_bwd(const void* q, const void* k,
                                   const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dq, void* dk, void* dv, int batch,
-                                  int n_tok, int n_heads, int head_dim,
+                                  const void* o, const void* lse, void* lse2,
+                                  void* delta, void* dq_acc, void* dq,
+                                  void* dk, void* dv, int batch, int n_tok,
+                                  int n_pad, int n_heads, int head_dim,
                                   const long long* strides, int fused,
                                   float scale, void* stream) {
+  if (n_tok < 1 || n_pad % kTileQ != 0 || n_pad < n_tok ||
+      n_pad - n_tok >= kTileQ)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, dout, lse, delta, dq, dk, dv, batch, n_tok,
-                        n_heads, strides, fused != 0, scale, s);
+      return launch<32>(q, k, v, dout, o, lse, lse2, delta, dq_acc, dq, dk,
+                        dv, batch, n_tok, n_pad, n_heads, strides, fused != 0,
+                        scale, s);
     case 64:
-      return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, batch, n_tok,
-                        n_heads, strides, fused != 0, scale, s);
+      return launch<64>(q, k, v, dout, o, lse, lse2, delta, dq_acc, dq, dk,
+                        dv, batch, n_tok, n_pad, n_heads, strides, fused != 0,
+                        scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -16,11 +16,15 @@ LSE.
 
 The backward has two schedules, as in the JAX package: K2
 (``flash_attention_bwd_fused``, one pass over key blocks, dQ summed across
-blocks with f32 atomics) and K3 (``flash_attention_bwd_split``, a dQ pass
-and a dK/dV pass, deterministic). ``_BWD_FUSED`` picks between them from
-the same ``E3D_FLASH_BWD_FUSED`` knob, read at import. Both live in
-``csrc/flash_attn_bwd.cu``; their plain version is
-``flash_attention_bwd_reference``.
+blocks by bulk f32 reductions) and K3 (``flash_attention_bwd_split``, a dQ
+pass and a dK/dV pass, deterministic). ``_BWD_FUSED`` picks between them
+from the same ``E3D_FLASH_BWD_FUSED`` knob, read at import; unset, it
+names the one measured faster on the H100. Both live in
+``csrc/flash_attn_bwd.cu`` (TMA, wgmma, warp specialisation), behind a
+preparation kernel (delta, padded LSE) whose plain version is
+``bwd_prep_reference``; K2's f32 accumulator goes through a conversion
+kernel whose plain version is ``bwd_convert_reference``. Their plain
+version as a whole is ``flash_attention_bwd_reference``.
 
 ``flash_attention_qkv`` is the differentiable entry: it takes the packed
 (B, N, 3, H, D) projection, runs the forward (K1, K4 or K5) on its three
@@ -45,9 +49,12 @@ _BWD_LIB_NAME = "flash_attn_bwd"
 _K1_ENTRY = "e3d_flash_attn_fwd"
 _K4_ENTRY = "e3d_flash_attn_fwd_pair"
 _K5_ENTRY = "e3d_flash_attn_fwd_heads"
-# The backward schedule: K2 (fused) unless E3D_FLASH_BWD_FUSED=0 asks for
-# K3 (split), the knob of the JAX package's ops/flash_attention.py.
-_BWD_FUSED = os.environ.get("E3D_FLASH_BWD_FUSED", "1") == "1"
+# The backward schedule, the knob of the JAX package's
+# ops/flash_attention.py: E3D_FLASH_BWD_FUSED=1 selects K2 (fused), =0 K3
+# (split). Unset, the port takes the one measured faster through its
+# wrapper at vitl's shape on the H100 (PERF.md, Findings).
+_BWD_DEFAULT = "1"
+_BWD_FUSED = os.environ.get("E3D_FLASH_BWD_FUSED", _BWD_DEFAULT) == "1"
 # The forward schedule, from the same module's knobs: E3D_FLASH_PAIR=1
 # selects K4, E3D_FLASH_PIPE=1 or E3D_FLASH_HLOOP=1 K5. All three compute
 # K1's function; the backward stays K2 or K3.
@@ -81,8 +88,58 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32, (B, N, H, D) -> (B, H, N) contiguous
-    (computed outside the kernel, as the JAX package leaves it to XLA)."""
+    (the JAX package leaves it to XLA; on the card the backward's
+    preparation kernel computes it)."""
     return (_wide(do) * _wide(o)).sum(-1).transpose(1, 2).contiguous()
+
+
+BWD_TILE = 64  # the backward kernels' query tile
+
+
+def padded_rows(n: int) -> int:
+    """Np: n rounded up to the backward's query tile, the row count of its
+    (B, H, Np) LSE and delta buffers and of K2's dQ accumulator."""
+    return -(-n // BWD_TILE) * BWD_TILE
+
+
+def bwd_prep_reference(o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                       fused: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor | None]:
+    """Plain version of the preparation kernel: (lse2, delta, dq_acc).
+
+    lse2 = LSE * log2(e) and delta = rowsum(dO * O), (B, H, Np) f32, with
+    +inf and 0 on the padded rows (so that P = exp2(S scale log2(e) -
+    lse2) is 0 there); under K2 (``fused``) also the zeroed (B, H, Np, D)
+    f32 dQ accumulator."""
+    b, n, h, d = o.shape
+    pad = padded_rows(n) - n
+    lse2 = torch.nn.functional.pad(lse.float() * math.log2(math.e),
+                                   (0, pad), value=math.inf)
+    delta = torch.nn.functional.pad(attention_delta(o, do).float(), (0, pad))
+    acc = (torch.zeros((b, h, n + pad, d), dtype=torch.float32,
+                       device=o.device) if fused else None)
+    return lse2, delta, acc
+
+
+def dq_acc_swizzle(acc: torch.Tensor) -> torch.Tensor:
+    """K2's accumulator layout: within each (Np, D) row, 8-value chunk c
+    holds logical chunk c ^ (row % 4) (so the kernel's stores from the
+    wgmma accumulator hit distinct shared-memory banks). Its own inverse:
+    it maps the logical layout to the stored one and back."""
+    rows, d = acc.shape[-2:]
+    col = torch.arange(d, device=acc.device)
+    row = torch.arange(rows, device=acc.device)[:, None] % 4
+    idx = ((col // 8) ^ row) * 8 + col % 8
+    return torch.gather(acc, -1, idx.expand(acc.shape))
+
+
+def bwd_convert_reference(dq_acc: torch.Tensor, n: int, scale: float,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K2's conversion kernel: the (B, H, Np, D) f32
+    accumulator of dS K, in the stored layout, as dq = its first n rows
+    times ``scale`` in ``dtype``, (B, N, H, D)."""
+    dq = dq_acc_swizzle(dq_acc)[:, :, :n] * scale
+    return dq.to(dtype).transpose(1, 2)
 
 
 def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -123,9 +180,11 @@ def _bind(lib: ctypes.CDLL, entry: str):
 
 
 def _bind_bwd(lib: ctypes.CDLL):
+    """q, k, v, dO, o, lse, lse2, delta, dq_acc, dq, dk, dv; B, N, Np, H,
+    D; 24 strides; fused, scale, stream."""
     fn = lib.e3d_flash_attn_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -136,6 +195,16 @@ def _layout_ok(x: torch.Tensor) -> bool:
     """16-byte row chunks: unit stride on D, other strides and the base
     address aligned to 8 elements."""
     return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _tma_ok(x: torch.Tensor) -> bool:
+    """Whether TMA can read the (B, N, H, D) view as it is: unit stride on
+    D, every other stride non-zero and a multiple of 16 bytes, the base
+    16-byte aligned."""
+    size = x.element_size()
+    return (x.dim() == 4 and x.stride(3) == 1
+            and all(s != 0 and s * size % 16 == 0 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
 
@@ -292,51 +361,62 @@ def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_heads.launches = 0
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool) -> None:
-    """Checks and one call of ``e3d_flash_attn_bwd`` (K2 or K3)."""
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Checks and one call of ``e3d_flash_attn_bwd``: the preparation
+    kernel, then K2's dK/dV kernel with the dQ share and its conversion
+    (``fused``), or K3's dQ and dK/dV kernels. dq, dk and dv are bf16
+    (B, N, H, D) views; the f32 scratch is allocated here and returned,
+    as ``bwd_prep_reference`` lays it out: (lse2, delta, dq_acc)."""
     # dO comes from autograd and may be non-contiguous (or broadcast, with
-    # a zero stride, after a sum); a layout the kernel does not read is
-    # copied once here. That is a copy, not a fallback: the kernel runs.
-    if do.device == q.device and do.dim() == 4 and not _layout_ok(do):
+    # a zero stride, after a sum); a layout TMA cannot read is copied
+    # once here. That is a copy, not a fallback: the kernel runs.
+    if do.device == q.device and do.dim() == 4 and not _tma_ok(do):
         do = do.contiguous()
-    _check(q, ("k", k), ("v", v), ("o", o), ("dO", do), ("dk", dk),
-           ("dv", dv))
+    _check(q, ("k", k), ("v", v), ("o", o), ("dO", do), ("dq", dq),
+           ("dk", dk), ("dv", dv))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not _tma_ok(x):
+            raise ValueError(f"flash_attention: {name} (strides "
+                             f"{x.stride()}) is not a view TMA can read: "
+                             "unit stride on D, other strides non-zero "
+                             "multiples of 16 bytes, 16-byte aligned base")
     b, n, h, d = q.shape
-    if fused:
-        if dq.dtype != torch.float32 or not dq.is_contiguous() \
-                or dq.shape != q.shape or dq.device != q.device:
-            raise ValueError("flash_attention: K2 adds dq into a contiguous "
-                             "(B, N, H, D) float32 scratch on q's device")
-    else:
-        _check(q, ("dq", dq))
     if (lse.shape != (b, h, n) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention: lse must be a contiguous "
                          f"(B, H, N) = {(b, h, n)} float32 tensor on q's "
                          f"device, got {tuple(lse.shape)} {lse.dtype}")
-    delta = attention_delta(o, do)
-    strides = (ctypes.c_longlong * 21)(*(
-        s for x in (q, k, v, do, dq, dk, dv) for s in x.stride()[:3]))
+    n_pad = padded_rows(n)
+    lse2 = torch.empty((b, h, n_pad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse2)
+    acc = (torch.empty((b, h, n_pad, d), dtype=torch.float32,
+                       device=q.device) if fused else None)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in (q, k, v, do, o, dq, dk, dv) for s in x.stride()[:3]))
     fn = _bind_bwd(cbuild.load(_BWD_LIB_NAME))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, n, h, d, strides,
-                 int(fused), 1.0 / math.sqrt(d), stream)
+                 o.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+                 delta.data_ptr(), 0 if acc is None else acc.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, n_pad, h,
+                 d, strides, int(fused), 1.0 / math.sqrt(d), stream)
+    if err < 0:
+        raise RuntimeError("flash_attn_bwd: a TMA tensor map could not be "
+                           f"encoded (CUresult {-err})")
     if err:
         raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
+    return lse2, delta, acc
 
 
 def flash_attention_bwd_fused(q, k, v, o, lse, do, dq, dk, dv) -> None:
-    """Kernel K2: writes dk and dv (bf16 (B, N, H, D) views allowed) and
-    dq, which may be a bf16 view too: the kernel sums dq into an f32
-    scratch with atomics, and a cast pass writes it into ``dq``. Adds one
-    to ``flash_attention_bwd_fused.launches``."""
-    scratch = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd(q, k, v, o, lse, do, scratch, dk, dv, fused=True)
+    """Kernel K2: writes dq, dk and dv (bf16 (B, N, H, D) views allowed).
+    One pass over key blocks; each block's dQ share is added into an f32
+    accumulator by bulk reductions, which a conversion kernel scales and
+    rounds into ``dq``. Adds one to ``flash_attention_bwd_fused.launches``."""
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused=True)
     flash_attention_bwd_fused.launches += 1
-    dq.copy_(scratch)
 
 
 flash_attention_bwd_fused.launches = 0

@@ -114,10 +114,16 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
             / ref.float().abs().max()).item()
 
 
+# vitl's shape (a ragged last 128-key block), an exact multiple of the
+# tiles, one shorter than a tile, an odd B*H at D 32, and others.
+BWD_SHAPES = [(8, 1370, 16, 64), (2, 256, 4, 64), (1, 50, 2, 64),
+              (3, 130, 5, 32), (2, 128, 4, 64), (1, 37, 2, 64),
+              (2, 200, 3, 64)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [True, False], ids=["K2", "K3"])
-@pytest.mark.parametrize("shape", [(3, 130, 5, 32), (2, 128, 4, 64),
-                                   (1, 37, 2, 64), (2, 200, 3, 64)])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_backward_kernels_match_plain(shape, fused, card, monkeypatch):
     monkeypatch.setattr(fa, "_BWD_FUSED", fused)
     qkv, o, lse, do = _bwd_case(*shape, seed=sum(shape), card=card)
@@ -141,6 +147,78 @@ def test_split_backward_is_deterministic(card, monkeypatch):
     a = fa.flash_attention_qkv_backward(qkv, o, lse, do)
     b = fa.flash_attention_qkv_backward(qkv, o, lse, do)
     assert torch.equal(a, b)
+
+
+def _within_one_ulp(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Elementwise at most one bf16 step apart, wherever the values stand
+    above f32 summation noise (2^-12 of the largest |value|)."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(big.clamp_min(1e-30))) - 7)
+    ok = ((a - b).abs() <= ulp) | (big < 2.0 ** -12 * big.max())
+    return bool(ok.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (3, 130, 5, 32)])
+def test_backward_kernels_repeat(shape, card, monkeypatch):
+    """K3 gives the same bits twice. K2's dk and dv too; its dq is summed
+    by bulk reductions that land in another order from run to run, so it
+    may move by one bf16 step."""
+    qkv, o, lse, do = _bwd_case(*shape, seed=6, card=card)
+    runs = {}
+    for fused in (True, False):
+        monkeypatch.setattr(fa, "_BWD_FUSED", fused)
+        runs[fused] = [fa.flash_attention_qkv_backward(qkv, o, lse, do)
+                       for _ in range(2)]
+    assert torch.equal(*runs[False])
+    (dq0, dk0, dv0), (dq1, dk1, dv1) = (r.unbind(2) for r in runs[True])
+    assert torch.equal(dk0, dk1) and torch.equal(dv0, dv1)
+    assert _within_one_ulp(dq0, dq1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["K2", "K3"])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 64), (3, 130, 5, 32)])
+def test_backward_kernels_take_a_broadcast_grad(shape, fused, card,
+                                                monkeypatch):
+    """A dO with a zero stride (autograd's gradient of a sum) is copied
+    once for TMA and gives the plain backward's gradient."""
+    monkeypatch.setattr(fa, "_BWD_FUSED", fused)
+    qkv, o, lse, do = _bwd_case(*shape, seed=7, card=card)
+    row = do[:, :1].expand_as(do)
+    assert not fa._tma_ok(row)
+    dqkv = fa.flash_attention_qkv_backward(qkv, o, lse, row)
+    ref = fa.flash_attention_bwd_reference(*qkv.unbind(2), o, lse, row)
+    for name, got, want in zip("qkv", dqkv.unbind(2), ref):
+        assert _rel_err(got, want) <= BWD_TOL, (name, _rel_err(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (3, 130, 5, 32)])
+def test_prep_and_convert_kernels_match_plain(shape, card):
+    """The preparation kernel's padded LSE2 and delta against
+    ``bwd_prep_reference`` (+inf and 0 past N), and K2's dq against the
+    conversion's plain version applied to the accumulator the kernels
+    left: the same f32 values scaled and rounded, so the same bits."""
+    qkv, o, lse, do = _bwd_case(*shape, seed=8, card=card)
+    q, k, v = qkv.unbind(2)
+    dq, dk, dv = torch.empty_like(qkv).unbind(2)
+    lse2, delta, acc = fa._launch_bwd(q, k, v, o, lse, do, dq, dk, dv,
+                                      fused=True)
+    torch.cuda.synchronize()
+    want_lse2, want_delta, _ = fa.bwd_prep_reference(o, do, lse, fused=True)
+    n = shape[1]
+    assert lse2.shape == want_lse2.shape == (shape[0], shape[2],
+                                             fa.padded_rows(n))
+    assert torch.isinf(lse2[..., n:]).all() and (lse2[..., n:] > 0).all()
+    assert (delta[..., n:] == 0).all()
+    torch.testing.assert_close(lse2[..., :n], want_lse2[..., :n],
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(delta, want_delta, rtol=1e-4, atol=1e-4)
+    scale = shape[3] ** -0.5
+    assert torch.equal(dq, fa.bwd_convert_reference(acc, n, scale,
+                                                    torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -177,9 +255,16 @@ def test_backward_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd_split(q, k, v, o, lse.transpose(1, 2), do,
                                      dq, dk, dv)
-    with pytest.raises(ValueError, match="scratch"):
-        fa._launch_bwd(q, k, v, o, lse, do, scratch.bfloat16(), dk, dv,
-                       fused=True)
+    # dq is the bf16 view for both kernels; K2's f32 scratch is the
+    # wrapper's own.
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa._launch_bwd(q, k, v, o, lse, do, scratch, dk, dv, fused=True)
+    # q, k and v are read by TMA as they are: a broadcast one is refused.
+    before = fa.flash_attention_bwd_fused.launches
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_bwd_fused(q, k[:, :1].expand_as(k), v, o, lse,
+                                     do, dq, dk, dv)
+    assert fa.flash_attention_bwd_fused.launches == before
 
 
 def _vitt_grads(card, plain: bool, dtype=torch.bfloat16):
