@@ -74,26 +74,22 @@
 // C7515, C7518) and cost K2 and K3 a fifth of their time on the H100; a
 // third pipeline stage changed nothing (PERF.md, Findings).
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace hopper;
 
-constexpr int kTileQ = 64;     // queries per tile: one wgmma's 64 rows or N
-constexpr int kTileK = 64;     // keys per consumer warpgroup / per dQ tile
+constexpr int kTileQ = kTileRows;  // queries per tile: one wgmma's 64 rows
+constexpr int kTileK = kTileRows;  // keys per consumer warpgroup / dQ tile
 constexpr int kConsumers = 2;  // consumer warpgroups per block
 constexpr int kBlockK = kConsumers * kTileK;  // keys per dK/dV block
 constexpr int kBlockQ = kConsumers * kTileQ;  // queries per dQ block
 constexpr int kThreads = 128 * (1 + kConsumers);  // producer warpgroup first
 constexpr int kStages = 2;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;  // 24 x 128 + 240 x 256 <= 64K
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Named barriers (0 is __syncthreads).
 constexpr int kBarDsFull = 1;   // + buffer: both consumers stored dS^T
@@ -105,84 +101,18 @@ struct Strides {
   long long sb, sn, sh;
 };
 
-// Shared-memory geometry of a 64-row bf16 tile at head dim D as TMA
-// writes it and wgmma reads it: rows of D * 2 bytes, 128B swizzle at D 64
-// and 64B at D 32 (the row is the swizzle span), 8-row atoms.
 template <int D>
-struct Tile {
-  static_assert(D == 32 || D == 64, "head dim 32 or 64");
-  static constexpr int kRowBytes = D * 2;
-  static constexpr int kBytes = kTileQ * kRowBytes;
-  static constexpr uint32_t kAtom = 8 * kRowBytes;        // descriptor SBO
-  static constexpr uint64_t kMode = D == 64 ? 1 : 2;      // wgmma 128B / 64B
-  static constexpr CUtensorMapSwizzle kTma =
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-};
+using Tile = SwizzledTile<D>;
 
 // The (128 keys x 64 queries) bf16 dS^T tile of K2: 128-byte rows.
 constexpr int kDsRowBytes = kTileQ * 2;
 constexpr uint32_t kDsAtom = 8 * kDsRowBytes;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The dynamic shared memory, its shared-space address rounded up to 1024
-// bytes (the swizzle atoms' alignment); each kernel asks for 1 KB more.
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading byte
-// offset 16 (unused by these layouts: swizzled K-major, and MN-major with
-// one swizzle atom across M or N), stride byte offset between 8-row atoms
-// along M/N (K-major) or K (MN-major), and the swizzle mode.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
-                                              uint64_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
-}
-
-// ------------------------------------------------- mbarriers, TMA, bulk
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n"
-      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
 // 64 token rows of one head of a (B, N, H, D) view; rows >= N are zeros.
 __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int h, int row,
                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
+  tma_load_4d(dst, map, bar, 0, h, row, b);
 }
 
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -201,199 +131,6 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
       "[%0], [%1], %2;\n"
       :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// The shared memory of every bulk reduction issued so far has been read.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Generic-proxy shared-memory writes become visible to wgmma and to bulk
-// copies (the async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
-}
-
-// ------------------------------------------------------------- wgmma
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma registers
-// across the asynchronous instructions that own them.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (64 x 64 f32) += A (64 x 16, shared) * B (16 x 64, shared).
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, shared).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate), "n"(kTransB));
-}
-
-// d (64 x 32 f32) += A (64 x 16, shared) * B (16 x 32, shared).
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-}
-
-// d (64 x 32 f32) += A (64 x 16 bf16, registers) * B (16 x 32, shared).
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(accumulate), "n"(kTransB));
-}
-
-
-// 64 x N products by N, N = 64 or 32 (the f32 accumulator: N / 2
-// registers a thread, row warp * 16 + lane / 4 (+ 8), columns
-// 8 j + 2 (lane % 4) (+ 1)).
-template <int N, int kTransA, int kTransB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_ss_n64<kTransA, kTransB>(d, a, b, accumulate);
-  } else {
-    wgmma_ss_n32<kTransA, kTransB>(d, a, b, accumulate);
-  }
-}
-
-template <int N, int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         int accumulate) {
-  if constexpr (N == 64) {
-    wgmma_rs_n64<kTransB>(d, a, b, accumulate);
-  } else {
-    wgmma_rs_n32<kTransB>(d, a, b, accumulate);
-  }
-}
-
-template <int kRows>
-__device__ __forceinline__ void zero(float (&d)[kRows]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) d[i] = 0.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A 64 x 64 f32 accumulator as the bf16 A operands of four k16 steps of a
-// register-A wgmma (its columns become the product's K).
-__device__ __forceinline__ void to_a_operand(const float (&d)[32],
-                                             uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = 4 * (2 * kk + r / 2) + 2 * (r % 2);
-      a[kk][r] = pack_bf16(d[i], d[i + 1]);
-    }
-  }
-}
-
-__device__ __forceinline__ void setmaxnreg_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
-}
-
-__device__ __forceinline__ void setmaxnreg_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
 }
 
 // ------------------------------------------------------------- prep
@@ -510,7 +247,7 @@ flash_attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers * 4);  // one arrival per warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -787,7 +524,7 @@ flash_attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -953,33 +690,6 @@ flash_attn_bwd_convert_kernel(const float* __restrict__ dq_acc,
 
 // ------------------------------------------------------------- host
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library links no libcuda.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (B, N, H, D) bf16 view as a rank-4 (D, H, N, B) tensor map read in
 // boxes of 64 token rows of one head, swizzled for wgmma.
 template <int D>
@@ -993,19 +703,7 @@ CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
                                  static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, kTileQ, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kTma,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  return encode_bf16_4d(fn, map, base, dims, strides, box, Tile<D>::kTma);
 }
 
 inline unsigned blocks_of(long long n, int per_block) {

@@ -6,66 +6,89 @@
 //   S[:, j] = -1e30 for key j >= N   (ragged key edge, masked by index)
 //   O   = (bf16(P) V) / l,  P = exp(S - m),  m = rowmax S,  l = sum P
 //   LSE = m + log l
-// with O written as (B, N, H, D) bf16 and LSE as (B, H, N) f32. Each warp
-// owns 16 query rows of one head and runs the same per-tile code
-// (tile_scores, tile_softmax_pv, store_rows), so the three kernels give
-// bit-identical O and LSE; they differ only in which heads a block owns
-// and in how its copies overlap its arithmetic.
+// in the log2 domain, with an online softmax over tiles of keys (64 in K1,
+// 128 in K4 and K5): a running row max m, a running sum l and a rescale of
+// the f32 O accumulator whenever m grows. As on the TPU, P is rounded to bf16
+// unnormalised before the PV product and the division by l follows it,
+// in f32; LSE = m ln2 + log l is rounded operation by operation (the _rn
+// intrinsics). O is written (B, N, H, D) bf16 and LSE (B, H, N) f32. q, k
+// and v are read through their strides, so the caller passes views of
+// the packed qkv projection (B, N, 3, H, D) without copies; nothing is
+// padded, and rows at or past N are never written.
 //
 // K1 replaces ops/flash_attention.py::_fwd_kernel / _fwd_one_head of the
 // JAX package. The TPU kernel keeps a head's whole K and V resident in
 // VMEM. At N = 1370, D = 64 that is 351 KB, more than the 227 KB a block
-// can have, so here K and V stream through shared memory in tiles of 64
-// keys with an online softmax: a running row max m, a running sum l, and a
-// rescale of the f32 O accumulator whenever m grows. One block of four
-// warps owns one (batch*head, 64-query tile); nothing is carried across
-// blocks. Q, K and V are read through explicit strides, so the caller
-// passes views of the packed qkv projection (B, N, 3, H, D) without
-// copies; rows past N are zero-filled in shared memory, and no padding to
-// a block multiple exists anywhere. The products run on the tensor cores
-// through mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix;
-// the next K/V tile is fetched with cp.async while the current one is
-// consumed (two stages). As on the TPU, P is rounded to bf16 before the PV
-// product and the division by l happens after it, in f32.
+// can have, so K and V stream through shared memory. One block of four
+// warps owns one (batch*head, 64-query tile); each warp owns 16 query
+// rows. Rows past N are zero-filled in shared memory. The products run
+// on the tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate)
+// fed by ldmatrix; the next K/V tile is fetched with cp.async while the
+// current one is consumed (two stages).
 //
-// K4 replaces _fwd_pair / _fwd_pair_kernel (E3D_FLASH_PAIR=1). On the TPU
-// two heads share one program so that the score product, made block
-// diagonal, fills the MXU's 128-deep contraction; on Hopper that trick
-// would double the FLOPs, so it is not copied. What pairing buys here is
-// the load: heads 2p and 2p+1 of the flattened B*H axis sit side by side
-// in the packed projection, so one block of eight warps (four per head)
-// fetches each K and V tile of both heads as one 64-row x 2*D*2-byte
-// cp.async copy, and the two heads' arithmetic is K1's.
+// K4 and K5 are warp-specialised: one block of three warpgroups.
+// Warpgroup 0 is the producer: it drops to 24 registers (setmaxnreg) and
+// one thread issues every TMA load (rank-4 tensor maps over the strided
+// (B, N, H, D) views, dims (D, N, H, B), 128B swizzle at D 64 and 64B at
+// D 32), K and V streaming in 128-key tiles through a two-stage ring of
+// full/empty mbarriers (at N = 1370, 11 tiles, the last holding 90
+// keys). Warpgroups 1 and 2 are consumers at 240 registers, each owning
+// 64 query rows; per key tile (consumer_step): S = Q K^T by wgmma
+// from shared memory (both tiles K-major), a wait, the mask, running max,
+// rescale and P in registers, then O += bf16(P) V by wgmma with A from
+// registers (the S accumulator's layout is the A operand's, so P never
+// touches shared memory) and V read MN-major. TMA zero-fills rows at or
+// past N; keys there are still masked by index, since a zero K row gives
+// S = 0, not -inf. A finished head's O leaves through the consumer's own
+// swizzled staging tile by one TMA store, which clips at N; LSE from the
+// thread that holds the row. Each wgmma group is waited for before the
+// accumulators it writes are read. Their sums are taken in another order
+// than K1's, so O and LSE agree with K1's to within rounding, not bit for
+// bit.
+//
+// K4 replaces _fwd_pair / _fwd_pair_kernel (E3D_FLASH_PAIR=1): one block
+// per (heads 2p and 2p+1 of the B*H axis, 64-query tile), consumer g
+// owning head 2p+g. On the TPU the two heads share a program so that the
+// score product, made block diagonal, fills the MXU's 128-deep
+// contraction; on Hopper that would double the FLOPs, so it is not copied.
+// What pairing buys here is the load: where both heads lie in one batch
+// row, one TMA box of (D, rows, 2 heads) brings each Q, K and V tile of
+// both; where the pair straddles two batch rows (odd H), two boxes land in
+// the same stage under one transaction count.
 //
 // K5 replaces _fwd_kernel with hb heads per program under E3D_FLASH_PIPE=1
 // (_fwd_kernel_pipe / _fwd_scores / _fwd_finish) and E3D_FLASH_HLOOP=1
-// (the fori_loop over heads). One block of four warps owns (a block of hb
-// consecutive heads of the B*H axis, a 64-query tile) and walks its heads'
-// key tiles as one stream. kPipe = true: head h+1's Q and first K/V tile
-// are already in flight by cp.async while head h's last tile is consumed,
-// and head h+1's first Q K^T is started before head h's last softmax, PV
-// and normalisation. kPipe = false (HLOOP): the same loop, but a head's
-// first tile is fetched only once the previous head is written.
+// (the fori_loop over heads): one block per (hb consecutive heads of the
+// B*H axis, 128-query tile), both consumers on the same head. The
+// producer streams the block's (head, key tile) sequence through the
+// ring, each head's Q (128 rows) into a buffer chosen by head parity; at
+// a head's last tile each consumer normalises, writes its rows, resets
+// and goes on with the next head. kPipe = true (PIPE): the producer never
+// waits at a head boundary, so head h+1's Q and first K/V tile are in
+// flight during head h's last tile, and each consumer issues head h+1's
+// first Q K^T group before head h's last softmax, PV and write.
+// kPipe = false (HLOOP): the producer loads head h+1's Q and first tile
+// only after both consumers have written head h.
 //
 // Bound at the flagship shape (B 8, N 1370, H 16, D 64), per launch, the
 // same for the three:
 //   4 B H N^2 D = 61.5 GFLOP of tensor-core work -> 62 us at 989 TFLOP/s;
 //   Q, K, V, O = 4 x 22.4 MB = 90 MB             -> 27 us at 3.35 TB/s;
-//   B H N^2 = 240 M exponentials, of the same order as the FLOP time on
+//   B H N^2 = 240 M exponentials, about 65 us at 16 a clock per SM on
 //   the special-function units.
-// So they are compute-bound, about 60 us at best, and a vitl forward
-// launches one of them 24 times. These first versions use mma.sync, not
-// wgmma/TMA, and no warp specialisation; those come later. What limits
-// them now is how many warps an SM holds: the register file. So K4 and K5
-// ask ptxas (__launch_bounds__) for two 8-warp blocks, or three (pipelined)
-// and four (looped) 4-warp blocks per SM, trading a few spills for warps.
+// So they are compute-bound. One consumer's softmax can hide under the
+// other's products, not under its own. K4 runs 1408 blocks at vitl and
+// K5 704 (hb = 2), one block per SM (its 384 threads hold the register
+// file), so 10.7 and 5.3 waves on 132 SMs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kBlockM = 64;   // query rows per block (per head)
 constexpr int kBlockN = 64;   // keys per shared-memory tile
@@ -73,21 +96,14 @@ constexpr int kWarps = 4;     // warps per head; each owns 16 query rows
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeyTiles = kBlockN / 8;  // n-tiles of Q K^T
 constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte async copy; src_bytes = 0 zero-fills the destination.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             bool valid) {
   const int src_bytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -103,7 +119,7 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -111,7 +127,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(smem_u32(p)));
 }
 
 // c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
@@ -124,18 +140,12 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Row pitch D + 8 keeps ldmatrix's eight 16-byte row reads on distinct
 // banks and every row 16-byte aligned.
 template <int D>
 struct Tile {
   static constexpr int kStride = D + 8;
   static constexpr int kElems = kBlockM * kStride;  // one 64-row tile
-  static constexpr int kBytes = kElems * 2;
 };
 
 // Copy rows [row0, row0 + 64) of a (rows, D) strided slab into a padded
@@ -152,29 +162,6 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
     const bool valid = row < n_rows;
     const bf16* g = src + (long long)(valid ? row : 0) * row_stride + c * 8;
     cp_async_16(tile + r * Tile<D>::kStride + c * 8, g, valid);
-  }
-}
-
-// The same rows of two heads into two consecutive tiles, by all 256
-// threads of a K4 block. Chunks run head-fastest within a row, so where
-// the two heads are adjacent in memory (the packed projection) a row of
-// both is one contiguous 2*D*2-byte segment.
-template <int D>
-__device__ __forceinline__ void load_pair_tile(bf16* tiles, const bf16* src0,
-                                               const bf16* src1,
-                                               long long row_stride, int row0,
-                                               int n_rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kBlockN * 2 * kChunks; i += 2 * kThreads) {
-    const int r = i / (2 * kChunks);
-    const int hd = (i / kChunks) % 2;
-    const int c = i % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < n_rows;
-    const bf16* g = (hd ? src1 : src0) +
-                    (long long)(valid ? row : 0) * row_stride + c * 8;
-    cp_async_16(tiles + hd * Tile<D>::kElems + r * Tile<D>::kStride + c * 8,
-                g, valid);
   }
 }
 
@@ -235,8 +222,7 @@ __device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4],
 
 // Online-softmax update with one tile's scores, then O += bf16(P) V. The
 // running sum l and the LSE are rounded operation by operation (the _rn
-// intrinsics), so the compiler contracts them alike in every kernel and
-// K1, K4 and K5 give bit-identical LSE.
+// intrinsics), as in K4's and K5's softmax_pv and store_head.
 template <int D>
 __device__ __forceinline__ void tile_softmax_pv(WarpState<D>& st,
                                                 float (&s)[kKeyTiles][4],
@@ -399,196 +385,438 @@ flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(st, o, lse, b, h, n_tok, n_heads, q0 + warp * 16, lane);
 }
 
-// ---------------------------------------------------------------- K4
+// ------------------------------------------------------- K4, K5: shared
 
-// Dynamic shared memory: Q of both heads, then two stages of K (both
-// heads), then two stages of V.
+constexpr int kWgConsumers = 2;  // consumer warpgroups per block
+constexpr int kWgThreads = 128 * (1 + kWgConsumers);  // producer first
+constexpr int kWgStages = 2;
+constexpr int kWgRows = kTileRows;  // query rows per consumer
+// Keys per K/V tile: 128 (S in 64 registers a thread) halves the ring's
+// barrier round trips against 64 and measured about a tenth faster on
+// the H100 (PERF.md); the code takes either.
+constexpr int kWgKeys = 128;
+constexpr int kScores = kWgKeys / 2;  // registers of a 64-row score tile
+constexpr int kBarStore = 1;  // + consumer: named barrier of its O store
+
 template <int D>
-constexpr int pair_smem_bytes() {
-  return 10 * Tile<D>::kBytes;
+using STile = SwizzledTile<D>;
+
+// One consumer warpgroup's running state for its 64 query rows of one
+// head. A thread holds rows warp * 16 + lane / 4 and that + 8.
+template <int D>
+struct RowState {
+  float o[D / 2];  // the 64 x D f32 accumulator of bf16(P) V
+  float m[2];      // running max, log2 domain
+  float l[2];      // this thread's share of the running sum
+
+  __device__ __forceinline__ void reset() {
+    zero(o);
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+};
+
+// Issue S = Q K^T for the consumer's 64 query rows and one key tile as
+// one wgmma group (both operands K-major in shared memory; a k16 step
+// advances 32 bytes along a row). Not waited for.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[kScores],
+                                             uint32_t s_q, uint32_t s_k) {
+  using T = STile<D>;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss<kWgKeys, 0, 0>(s, make_desc(s_q + kk * 32, T::kAtom, T::kMode),
+                            make_desc(s_k + kk * 32, T::kAtom, T::kMode), kk);
+  }
+  wgmma_commit();
 }
 
+// The rest of a consumer step, on scores already waited for: scale into
+// the log2 domain, mask keys >= N, update the running max, rescale O and
+// l, form P (l sums the f32 values), then O += bf16(P) V with P from
+// registers and V (a tile of keys x D) read MN-major, a k16 step being 16
+// key rows. Waits for every group of the warpgroup, so one issued before
+// it (the next head's scores) has completed on return too.
 template <int D>
-__global__ void __launch_bounds__(2 * kThreads, 2)
-flash_attn_fwd_pair_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                           float* __restrict__ lse, int n_tok, int n_heads,
-                           Strides st_, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kT = Tile<D>::kElems;
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // [head][tile]
-  bf16* s_k = s_q + 2 * kT;                   // [stage][head][tile]
-  bf16* s_v = s_k + 4 * kT;
-
-  const int n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  const int pair = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int hd = warp / kWarps;      // which head of the pair
-  const int row0 = (warp % kWarps) * 16;
-
-  // Heads 2 pair and 2 pair + 1 of the flattened B*H axis (they may lie
-  // in two batch rows when H is odd).
-  int bs[2], hs[2];
-  const bf16 *qb[2], *kb[2], *vb[2];
+__device__ __forceinline__ void softmax_pv(RowState<D>& st,
+                                           float (&s)[kScores], uint32_t s_v,
+                                           int key0, int n_tok,
+                                           float scale_log2, int t) {
+  using T = STile<D>;
+  float m_new[2] = {st.m[0], st.m[1]};
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int bh = 2 * pair + j;
-    bs[j] = bh / n_heads;
-    hs[j] = bh % n_heads;
-    qb[j] = q + bs[j] * st_.q_sb + hs[j] * st_.q_sh;
-    kb[j] = k + bs[j] * st_.k_sb + hs[j] * st_.k_sh;
-    vb[j] = v + bs[j] * st_.v_sb + hs[j] * st_.v_sh;
-  }
-
-  load_pair_tile<D>(s_q, qb[0], qb[1], st_.q_sn, q0, n_tok);
-  load_pair_tile<D>(s_k, kb[0], kb[1], st_.k_sn, 0, n_tok);
-  load_pair_tile<D>(s_v, vb[0], vb[1], st_.v_sn, 0, n_tok);
-  cp_async_commit();
-
-  WarpState<D> st;
-  st.reset();
-  const int n_ktiles = (n_tok + kBlockN - 1) / kBlockN;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_ktiles) {
-      const int next = (stage ^ 1) * 2 * kT;
-      load_pair_tile<D>(s_k + next, kb[0], kb[1], st_.k_sn,
-                        (kt + 1) * kBlockN, n_tok);
-      load_pair_tile<D>(s_v + next, vb[0], vb[1], st_.v_sn,
-                        (kt + 1) * kBlockN, n_tok);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int j = 0; j < kWgKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + 8 * j + 2 * t + (e & 1);
+      const float x = key < n_tok ? s[4 * j + e] * scale_log2 : kMaskValue;
+      s[4 * j + e] = x;
+      m_new[e / 2] = fmaxf(m_new[e / 2], x);
     }
-    __syncthreads();
-    if (kt == 0) load_q<D>(st.q, s_q + hd * kT, row0, lane);
-    const int tile = (stage * 2 + hd) * kT;
-    float s[kKeyTiles][4];
-    tile_scores<D>(s, st.q, s_k + tile, lane);
-    tile_softmax_pv<D>(st, s, s_v + tile, kt * kBlockN, n_tok, scale_log2,
-                       lane);
-    __syncthreads();
   }
-  store_rows<D>(st, o, lse, bs[hd], hs[hd], n_tok, n_heads, q0 + row0, lane);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    alpha[r] = exp2f(st.m[r] - m_new[r]);
+    st.m[r] = m_new[r];
+    st.l[r] = __fmul_rn(st.l[r], alpha[r]);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    st.o[4 * j + 0] *= alpha[0];
+    st.o[4 * j + 1] *= alpha[0];
+    st.o[4 * j + 2] *= alpha[1];
+    st.o[4 * j + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < kWgKeys / 8; ++j) {
+    const float p0 = exp2f(s[4 * j + 0] - st.m[0]);
+    const float p1 = exp2f(s[4 * j + 1] - st.m[0]);
+    const float p2 = exp2f(s[4 * j + 2] - st.m[1]);
+    const float p3 = exp2f(s[4 * j + 3] - st.m[1]);
+    st.l[0] = __fadd_rn(st.l[0], __fadd_rn(p0, p1));
+    st.l[1] = __fadd_rn(st.l[1], __fadd_rn(p2, p3));
+    s[4 * j + 0] = p0;
+    s[4 * j + 1] = p1;
+    s[4 * j + 2] = p2;
+    s[4 * j + 3] = p3;
+  }
+  uint32_t p[kWgKeys / 16][4];
+  to_a_operand(s, p);
+  fence_regs(st.o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+    wgmma_rs<D, 1>(st.o, p[kk],
+                   make_desc(s_v + kk * 16 * T::kRowBytes, T::kAtom, T::kMode),
+                   1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st.o);
+}
+
+// One whole consumer step: scores of the tile, their wait, softmax and PV.
+template <int D>
+__device__ __forceinline__ void consumer_step(RowState<D>& st, uint32_t s_q,
+                                              uint32_t s_k, uint32_t s_v,
+                                              int key0, int n_tok,
+                                              float scale_log2, int t) {
+  float s[kScores];
+  issue_scores<D>(s, s_q, s_k);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax_pv<D>(st, s, s_v, key0, n_tok, scale_log2, t);
+}
+
+// This warp has read the stage (or Q buffer) guarded by `bar`.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Normalise the consumer's 64 rows of head (b, h), from token row0, and
+// write them: O through the consumer's staging tile (swizzled as TMA
+// reads it, so a warp's stores hit 32 distinct banks) and one TMA store,
+// which clips at N; LSE into (B, H, N) from the thread that holds the
+// row. `tid` is the thread's index in its warpgroup.
+template <int D>
+__device__ __forceinline__ void store_head(const RowState<D>& st,
+                                           unsigned char* s_o,
+                                           const CUtensorMap* map_o,
+                                           float* __restrict__ lse, int b,
+                                           int h, int n_tok, int n_heads,
+                                           int row0, int w, int tid) {
+  using T = STile<D>;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = st.l[r];
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // The previous store from this tile must have read it.
+  if (tid == 0) bulk_wait_read();
+  bar_sync(kBarStore + w, 128);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(
+          s_o + T::swizzle(row * T::kRowBytes + j * 16 + 4 * t)) =
+          pack_bf16(st.o[4 * j + 2 * r] / l[r],
+                    st.o[4 * j + 2 * r + 1] / l[r]);
+    }
+    if (t == 0 && row0 + row < n_tok) {
+      lse[((long long)b * n_heads + h) * n_tok + row0 + row] =
+          __fadd_rn(__fmul_rn(st.m[r], kLn2), logf(l[r]));
+    }
+  }
+  fence_proxy_async();
+  bar_sync(kBarStore + w, 128);
+  if (tid == 0) tma_store_4d(map_o, s_o, 0, row0, h, b);
+}
+
+// ---------------------------------------------------------------- K4
+
+template <int D>
+struct PairSmem {
+  static constexpr int kTile = STile<D>::kBytes;  // 64 rows: Q or O
+  static constexpr int kKv = kWgKeys * STile<D>::kRowBytes;  // K or V
+  static constexpr int kQ = 0;  // [head of the pair]
+  static constexpr int kK = kQ + 2 * kTile;              // [stage][head]
+  static constexpr int kV = kK + kWgStages * 2 * kKv;    // [stage][head]
+  static constexpr int kO = kV + kWgStages * 2 * kKv;    // [consumer]
+  static constexpr int kBars = kO + kWgConsumers * kTile;
+  static constexpr int kBytes = kBars + (1 + 2 * kWgStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// tm_*2: boxes of two heads' 64 rows; tm_*1 and tm_o: one head's.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_fwd_pair_kernel(const __grid_constant__ CUtensorMap tm_q2,
+                           const __grid_constant__ CUtensorMap tm_k2,
+                           const __grid_constant__ CUtensorMap tm_v2,
+                           const __grid_constant__ CUtensorMap tm_q1,
+                           const __grid_constant__ CUtensorMap tm_k1,
+                           const __grid_constant__ CUtensorMap tm_v1,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           float* __restrict__ lse, int n_tok, int n_heads,
+                           float scale_log2) {
+  using L = PairSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kWgStages;
+
+  const int n_qtiles = (n_tok + kWgRows - 1) / kWgRows;
+  const int bh0 = 2 * (blockIdx.x / n_qtiles);  // heads bh0, bh0 + 1
+  const int q0 = (blockIdx.x % n_qtiles) * kWgRows;
+  const int n_ktiles = (n_tok + kWgKeys - 1) / kWgKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers * 4);  // one arrival per warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_producer();
+    if (threadIdx.x == 0) {
+      const int b0 = bh0 / n_heads;
+      const int h0 = bh0 % n_heads;
+      // Where head bh0 + 1 is head 0 of the next batch row (odd H), two
+      // boxes of one head each; else one box of both.
+      const bool straddle = h0 == n_heads - 1;
+      auto both = [&](int off, int bytes, const CUtensorMap* two,
+                      const CUtensorMap* one, uint64_t* bar, int row) {
+        if (!straddle) {
+          tma_load_4d(smem + off, two, bar, 0, row, h0, b0);
+        } else {
+          tma_load_4d(smem + off, one, bar, 0, row, h0, b0);
+          tma_load_4d(smem + off + bytes, one, bar, 0, row, 0, b0 + 1);
+        }
+      };
+      mbar_expect_tx(q_full, 2 * L::kTile);
+      both(L::kQ, L::kTile, &tm_q2, &tm_q1, q_full, q0);
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        const int s = kt % kWgStages;
+        if (kt >= kWgStages) mbar_wait(&empty[s], ((kt / kWgStages) + 1) & 1);
+        mbar_expect_tx(&full[s], 4 * L::kKv);
+        both(L::kK + s * 2 * L::kKv, L::kKv, &tm_k2, &tm_k1, &full[s],
+             kt * kWgKeys);
+        both(L::kV + s * 2 * L::kKv, L::kKv, &tm_v2, &tm_v1, &full[s],
+             kt * kWgKeys);
+      }
+    }
+  } else {
+    setmaxnreg_consumer();
+    const int w = threadIdx.x / 128 - 1;  // head bh0 + w
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const uint32_t s_q = smem_u32(smem + L::kQ + w * L::kTile);
+    const uint32_t s_k = smem_u32(smem + L::kK + w * L::kKv);
+    const uint32_t s_v = smem_u32(smem + L::kV + w * L::kKv);
+
+    RowState<D> st;
+    st.reset();
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      const int s = kt % kWgStages;
+      mbar_wait(&full[s], (kt / kWgStages) & 1);
+      consumer_step<D>(st, s_q, s_k + s * 2 * L::kKv, s_v + s * 2 * L::kKv,
+                       kt * kWgKeys, n_tok, scale_log2, lane % 4);
+      release(&empty[s], lane);
+    }
+    const int bh = bh0 + w;
+    store_head<D>(st, smem + L::kO + w * L::kTile, &tm_o, lse, bh / n_heads,
+                  bh % n_heads, n_tok, n_heads, q0, w, tid);
+    if (tid == 0) bulk_wait();
+  }
 }
 
 // ---------------------------------------------------------------- K5
 
-// Dynamic shared memory: Q by head parity (two), two stages of K, two of V.
 template <int D>
-constexpr int heads_smem_bytes() {
-  return 6 * Tile<D>::kBytes;
-}
+struct HeadsSmem {
+  static constexpr int kTile = STile<D>::kBytes;  // 64 rows: Q or O
+  static constexpr int kKv = kWgKeys * STile<D>::kRowBytes;  // K or V
+  static constexpr int kQ = 0;  // [head parity][consumer]
+  static constexpr int kK = kQ + 2 * kWgConsumers * kTile;  // [stage]
+  static constexpr int kV = kK + kWgStages * kKv;           // [stage]
+  static constexpr int kO = kV + kWgStages * kKv;           // [consumer]
+  static constexpr int kBars = kO + kWgConsumers * kTile;
+  // q_full[2], q_empty[2] (by head parity), full and empty per stage.
+  static constexpr int kBytes = kBars + (4 + 2 * kWgStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
 
 template <int D, bool kPipe>
-__global__ void __launch_bounds__(kThreads, kPipe ? 3 : 4)
-flash_attn_fwd_heads_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ o,
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_attn_fwd_heads_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_o,
                             float* __restrict__ lse, int n_tok, int n_heads,
-                            int hb, Strides st_, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kT = Tile<D>::kElems;
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // [head parity][tile]
-  bf16* s_k = s_q + 2 * kT;                   // [stage][tile]
-  bf16* s_v = s_k + 2 * kT;
+                            int hb, float scale_log2) {
+  using L = HeadsSmem<D>;
+  constexpr int kBlockRows = kWgConsumers * kWgRows;  // 128 queries
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kWgStages;
 
-  const int n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
+  const int n_qtiles = (n_tok + kBlockRows - 1) / kBlockRows;
   const int head0 = (blockIdx.x / n_qtiles) * hb;  // first head of B*H
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int n_ktiles = (n_tok + kBlockN - 1) / kBlockN;
-  const int n_steps = hb * n_ktiles;  // (head, key tile) in one stream
+  const int q0 = (blockIdx.x % n_qtiles) * kBlockRows;
+  const int n_ktiles = (n_tok + kWgKeys - 1) / kWgKeys;
 
-  // Step t's K and V tile into stage t & 1, and its head's Q with the
-  // head's first tile; one commit group per step.
-  auto fetch = [&](int t) {
-    const int hh = t / n_ktiles;
-    const int kt = t % n_ktiles;
-    const int bh = head0 + hh;
-    const int b = bh / n_heads;
-    const int h = bh % n_heads;
-    if (kt == 0) {
-      load_tile<D>(s_q + (hh & 1) * kT, q + b * st_.q_sb + h * st_.q_sh,
-                   st_.q_sn, q0, n_tok);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kWgConsumers * 4);
     }
-    load_tile<D>(s_k + (t & 1) * kT, k + b * st_.k_sb + h * st_.k_sh,
-                 st_.k_sn, kt * kBlockN, n_tok);
-    load_tile<D>(s_v + (t & 1) * kT, v + b * st_.v_sb + h * st_.v_sh,
-                 st_.v_sn, kt * kBlockN, n_tok);
-    cp_async_commit();
-  };
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWgConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  WarpState<D> st;
-  st.reset();
-  float s[kKeyTiles][4];
-  bool have_s = false;  // kPipe: the head's first scores are already done
-  fetch(0);
-  for (int t = 0; t < n_steps; ++t) {
-    const int hh = t / n_ktiles;
-    const int kt = t % n_ktiles;
-    const int stage = t & 1;
-    const bool last = kt == n_ktiles - 1;
-    const bool more = t + 1 < n_steps;
-    if (!kPipe && kt == 0 && t > 0) fetch(t);
-    if (more && (kPipe || !last)) {
-      fetch(t + 1);
-      // At a head's last tile the pipelined loop needs the next head's
-      // first tile too.
-      if (kPipe && last) {
-        cp_async_wait<0>();
-      } else {
-        cp_async_wait<1>();
-      }
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (!have_s) {
-      if (kt == 0) load_q<D>(st.q, s_q + (hh & 1) * kT, warp * 16, lane);
-      tile_scores<D>(s, st.q, s_k + stage * kT, lane);
-    }
-    have_s = false;
-    if (kPipe && last && more) {
-      // Head hh + 1: its Q K^T on the tensor cores before this head's
-      // softmax, PV and normalisation.
-      uint32_t q_next[D / 16][4];
-      float s_next[kKeyTiles][4];
-      load_q<D>(q_next, s_q + ((hh + 1) & 1) * kT, warp * 16, lane);
-      tile_scores<D>(s_next, q_next, s_k + (stage ^ 1) * kT, lane);
-      tile_softmax_pv<D>(st, s, s_v + stage * kT, kt * kBlockN, n_tok,
-                         scale_log2, lane);
-      const int bh = head0 + hh;
-      store_rows<D>(st, o, lse, bh / n_heads, bh % n_heads, n_tok, n_heads,
-                    q0 + warp * 16, lane);
-      st.reset();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st.q[kk][e] = q_next[kk][e];
-      }
-#pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = s_next[j][e];
-      }
-      have_s = true;
-    } else {
-      tile_softmax_pv<D>(st, s, s_v + stage * kT, kt * kBlockN, n_tok,
-                         scale_log2, lane);
-      if (last) {
+  // Head hh's Q lies in buffer hh & 1; q_empty[hh & 1] completes its
+  // phase hh / 2 when the consumers are done with it: PIPE after the
+  // head's last scores, HLOOP once the head is written.
+  if (threadIdx.x < 128) {
+    setmaxnreg_producer();
+    if (threadIdx.x == 0) {
+      int t = 0;  // (head, key tile) step of the stream
+      for (int hh = 0; hh < hb; ++hh) {
         const int bh = head0 + hh;
-        store_rows<D>(st, o, lse, bh / n_heads, bh % n_heads, n_tok, n_heads,
-                      q0 + warp * 16, lane);
-        st.reset();
+        const int b = bh / n_heads;
+        const int h = bh % n_heads;
+        const int qb = hh & 1;
+        if (kPipe && hh >= 2) mbar_wait(&q_empty[qb], ((hh - 2) >> 1) & 1);
+        if (!kPipe && hh >= 1) {
+          mbar_wait(&q_empty[qb ^ 1], ((hh - 1) >> 1) & 1);
+        }
+        mbar_expect_tx(&q_full[qb], kWgConsumers * L::kTile);
+        for (int c = 0; c < kWgConsumers; ++c) {
+          tma_load_4d(smem + L::kQ + (kWgConsumers * qb + c) * L::kTile,
+                      &tm_q, &q_full[qb], 0, q0 + c * kWgRows, h, b);
+        }
+        for (int kt = 0; kt < n_ktiles; ++kt, ++t) {
+          const int s = t % kWgStages;
+          if (t >= kWgStages) mbar_wait(&empty[s], ((t / kWgStages) + 1) & 1);
+          mbar_expect_tx(&full[s], 2 * L::kKv);
+          tma_load_4d(smem + L::kK + s * L::kKv, &tm_k, &full[s], 0,
+                      kt * kWgKeys, h, b);
+          tma_load_4d(smem + L::kV + s * L::kKv, &tm_v, &full[s], 0,
+                      kt * kWgKeys, h, b);
+        }
       }
     }
-    __syncthreads();  // the next steps refill this stage and Q buffer
+  } else {
+    setmaxnreg_consumer();
+    const int w = threadIdx.x / 128 - 1;  // rows q0 + 64 w of every head
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int row0 = q0 + w * kWgRows;
+    const uint32_t s_k = smem_u32(smem + L::kK);
+    const uint32_t s_v = smem_u32(smem + L::kV);
+    auto q_tile = [&](int qb) {
+      return smem_u32(smem + L::kQ + (kWgConsumers * qb + w) * L::kTile);
+    };
+
+    RowState<D> st;
+    st.reset();
+    float s[kScores];
+    bool have_s = false;  // PIPE: the head's first scores are formed
+    int t = 0;
+    for (int hh = 0; hh < hb; ++hh) {
+      const int qb = hh & 1;
+      if (!have_s) mbar_wait(&q_full[qb], (hh >> 1) & 1);
+      for (int kt = 0; kt < n_ktiles; ++kt, ++t) {
+        const int stage = t % kWgStages;
+        const bool last = kt == n_ktiles - 1;
+        if (!have_s) {
+          mbar_wait(&full[stage], (t / kWgStages) & 1);
+          issue_scores<D>(s, q_tile(qb), s_k + stage * L::kKv);
+          wgmma_wait<0>();
+          fence_regs(s);
+        }
+        have_s = false;
+        if (kPipe && last) release(&q_empty[qb], lane);
+        if (kPipe && last && hh + 1 < hb) {
+          // Head hh + 1's first Q K^T on the tensor cores while this
+          // head's last softmax, PV and write run.
+          const int next = (t + 1) % kWgStages;
+          float s_next[kScores];
+          mbar_wait(&q_full[qb ^ 1], ((hh + 1) >> 1) & 1);
+          mbar_wait(&full[next], ((t + 1) / kWgStages) & 1);
+          issue_scores<D>(s_next, q_tile(qb ^ 1), s_k + next * L::kKv);
+          softmax_pv<D>(st, s, s_v + stage * L::kKv, kt * kWgKeys, n_tok,
+                        scale_log2, lane % 4);
+          fence_regs(s_next);
+#pragma unroll
+          for (int i = 0; i < kScores; ++i) s[i] = s_next[i];
+          have_s = true;
+        } else {
+          softmax_pv<D>(st, s, s_v + stage * L::kKv, kt * kWgKeys, n_tok,
+                        scale_log2, lane % 4);
+        }
+        release(&empty[stage], lane);
+        if (last) {
+          const int bh = head0 + hh;
+          store_head<D>(st, smem + L::kO + w * L::kTile, &tm_o, lse,
+                        bh / n_heads, bh % n_heads, n_tok, n_heads, row0, w,
+                        tid);
+          st.reset();
+          if (!kPipe) release(&q_empty[qb], lane);
+        }
+      }
+    }
+    if (tid == 0) bulk_wait();
   }
 }
 
@@ -596,72 +824,120 @@ flash_attn_fwd_heads_kernel(const bf16* __restrict__ q,
 
 enum Variant { kK1 = 0, kK4 = 1, kK5Pipe = 2, kK5Loop = 3 };
 
-// Dynamic shared memory above 48 KB only after opting in (per kernel and
-// device; set before every launch, a host-side call).
+// The kernel, grid, block size and dynamic shared memory of the last
+// launch, read back by e3d_flash_attn_fwd_last_launch.
+struct LastLaunch {
+  const void* kernel;
+  long long blocks;
+  int threads;
+  int smem;
+};
+LastLaunch g_last = {nullptr, 0, 0, 0};
+
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+void note_launch(Kernel kernel, long long blocks, int threads, int smem) {
+  g_last = {reinterpret_cast<const void*>(kernel), blocks, threads, smem};
+}
+
+// A (B, N, H, D) bf16 view with element strides (sb, sn, sh) as a rank-4
+// tensor map of dims (D, N, H, B), read or written in boxes of `rows`
+// token rows of `heads` consecutive heads: a box lands as `heads`
+// swizzled tiles of `rows` rows one after another.
+template <int D>
+CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
+                     int batch, int n_tok, int n_heads, long long sb,
+                     long long sn, long long sh, int rows, int heads) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(n_tok),
+                              static_cast<cuuint64_t>(n_heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D),
+                             static_cast<cuuint32_t>(rows),
+                             static_cast<cuuint32_t>(heads), 1};
+  return encode_bf16_4d(fn, map, base, dims, strides, box, STile<D>::kTma);
+}
+
+// K4 or K5: the tensor maps of q (64-row boxes), k and v (key-tile boxes)
+// by one head and, for K4, by two, and of the contiguous o, then the
+// launch. Returns minus the
+// driver's error when a map cannot be encoded.
+template <int D>
+int launch_wg(Variant variant, const void* q, const void* k, const void* v,
+              void* o, float* lse, int batch, int n_tok, int n_heads, int hb,
+              const Strides& st, float scale_log2, cudaStream_t stream) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const long long o_sn = (long long)n_heads * D;
+  const long long o_sb = o_sn * n_tok;
+  const bool pair = variant == kK4;
+  CUtensorMap maps[7];  // q, k, v, o by one head; q, k, v by two (K4)
+  const void* bases[3] = {q, k, v};
+  const long long sbs[3] = {st.q_sb, st.k_sb, st.v_sb};
+  const long long sns[3] = {st.q_sn, st.k_sn, st.v_sn};
+  const long long shs[3] = {st.q_sh, st.k_sh, st.v_sh};
+  for (int i = 0; i < 3; ++i) {
+    for (int heads = 1; heads <= (pair ? 2 : 1); ++heads) {
+      const CUresult r = encode_rows<D>(
+          fn, &maps[heads == 1 ? i : 4 + i], bases[i], batch, n_tok, n_heads,
+          sbs[i], sns[i], shs[i], i == 0 ? kWgRows : kWgKeys, heads);
+      if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+    }
+  }
+  const CUresult r = encode_rows<D>(fn, &maps[3], o, batch, n_tok, n_heads,
+                                    o_sb, o_sn, D, kWgRows, 1);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+
+  const long long bh = (long long)batch * n_heads;
+  cudaError_t err;
+  if (pair) {
+    if (bh % 2) return cudaErrorInvalidValue;
+    const long long blocks = bh / 2 * ((n_tok + kWgRows - 1) / kWgRows);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    auto kernel = flash_attn_fwd_pair_kernel<D>;
+    constexpr int smem = PairSmem<D>::kAlloc;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    note_launch(kernel, blocks, kWgThreads, smem);
+    kernel<<<static_cast<unsigned>(blocks), kWgThreads, smem, stream>>>(
+        maps[4], maps[5], maps[6], maps[0], maps[1], maps[2], maps[3], lse,
+        n_tok, n_heads, scale_log2);
+    return cudaGetLastError();
+  }
+  if (hb < 1 || bh % hb) return cudaErrorInvalidValue;
+  constexpr int kBlockRows = kWgConsumers * kWgRows;
+  const long long blocks = bh / hb * ((n_tok + kBlockRows - 1) / kBlockRows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  auto kernel = flash_attn_fwd_heads_kernel<D, false>;
+  if (variant == kK5Pipe) kernel = flash_attn_fwd_heads_kernel<D, true>;
+  constexpr int smem = HeadsSmem<D>::kAlloc;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  note_launch(kernel, blocks, kWgThreads, smem);
+  kernel<<<static_cast<unsigned>(blocks), kWgThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, n_tok, n_heads, hb,
+      scale_log2);
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(Variant variant, const void* q, const void* k,
-                   const void* v, void* o, void* lse, int batch, int n_tok,
-                   int n_heads, int hb, const Strides& strides, float scale,
-                   cudaStream_t stream) {
-  const long long n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  const long long bh = (long long)batch * n_heads;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  float* lp = static_cast<float*>(lse);
+int launch(Variant variant, const void* q, const void* k, const void* v,
+           void* o, void* lse, int batch, int n_tok, int n_heads, int hb,
+           const Strides& strides, float scale, cudaStream_t stream) {
   const float scale_log2 = scale * kLog2e;
-  cudaError_t err;
-  switch (variant) {
-    case kK1: {
-      const long long blocks = bh * n_qtiles;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      flash_attn_fwd_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
-          qp, kp, vp, op, lp, n_tok, n_heads, strides, scale_log2);
-      break;
-    }
-    case kK4: {
-      if (bh % 2) return cudaErrorInvalidValue;
-      const long long blocks = bh / 2 * n_qtiles;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      constexpr int bytes = pair_smem_bytes<D>();
-      err = allow_smem(flash_attn_fwd_pair_kernel<D>, bytes);
-      if (err != cudaSuccess) return err;
-      flash_attn_fwd_pair_kernel<D>
-          <<<(unsigned)blocks, 2 * kThreads, bytes, stream>>>(
-              qp, kp, vp, op, lp, n_tok, n_heads, strides, scale_log2);
-      break;
-    }
-    case kK5Pipe:
-    case kK5Loop: {
-      if (hb < 1 || bh % hb) return cudaErrorInvalidValue;
-      const long long blocks = bh / hb * n_qtiles;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-      constexpr int bytes = heads_smem_bytes<D>();
-      if (variant == kK5Pipe) {
-        err = allow_smem(flash_attn_fwd_heads_kernel<D, true>, bytes);
-        if (err != cudaSuccess) return err;
-        flash_attn_fwd_heads_kernel<D, true>
-            <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-                qp, kp, vp, op, lp, n_tok, n_heads, hb, strides, scale_log2);
-      } else {
-        err = allow_smem(flash_attn_fwd_heads_kernel<D, false>, bytes);
-        if (err != cudaSuccess) return err;
-        flash_attn_fwd_heads_kernel<D, false>
-            <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-                qp, kp, vp, op, lp, n_tok, n_heads, hb, strides, scale_log2);
-      }
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
+  float* lp = static_cast<float*>(lse);
+  if (variant != kK1) {
+    return launch_wg<D>(variant, q, k, v, o, lp, batch, n_tok, n_heads, hb,
+                        strides, scale_log2, stream);
   }
+  const long long n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
+  const long long blocks = (long long)batch * n_heads * n_qtiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  note_launch(flash_attn_fwd_kernel<D>, blocks, kThreads, 0);
+  flash_attn_fwd_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lp, n_tok, n_heads,
+      strides, scale_log2);
   return cudaGetLastError();
 }
 
@@ -690,9 +966,12 @@ int dispatch(Variant variant, const void* q, const void* k, const void* v,
 
 // q, k, v: (B, N, H, D) bf16 with unit stride on D and element strides
 // (batch, token, head) given; o: contiguous (B, N, H, D) bf16; lse:
-// contiguous (B, H, N) f32. Each entry launches on `stream`, allocates
-// nothing, and returns cudaGetLastError() (cudaErrorInvalidValue for an
-// unsupported D, an odd B*H for K4, or an hb that does not divide B*H).
+// contiguous (B, H, N) f32. K4 and K5 read q, k and v by TMA (strides
+// multiples of 16 bytes, 16-byte aligned bases) and store o by TMA. Each
+// entry launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported D, an odd
+// B*H for K4, or an hb that does not divide B*H), or minus the driver's
+// error when a tensor map cannot be encoded.
 
 // K1: one block per (head, query tile).
 extern "C" int e3d_flash_attn_fwd(
@@ -706,7 +985,7 @@ extern "C" int e3d_flash_attn_fwd(
                   scale, stream);
 }
 
-// K4: one block per (pair of heads of the B*H axis, query tile).
+// K4: one block per (pair of heads of the B*H axis, 64-query tile).
 extern "C" int e3d_flash_attn_fwd_pair(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n_tok, int n_heads, int head_dim, long long q_sb,
@@ -718,8 +997,8 @@ extern "C" int e3d_flash_attn_fwd_pair(
                   scale, stream);
 }
 
-// K5: one block per (hb consecutive heads of the B*H axis, query tile);
-// pipe != 0 overlaps each head's end with the next head's start.
+// K5: one block per (hb consecutive heads of the B*H axis, 128-query
+// tile); pipe != 0 overlaps each head's end with the next head's start.
 extern "C" int e3d_flash_attn_fwd_heads(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n_tok, int n_heads, int head_dim, long long q_sb,
@@ -729,4 +1008,17 @@ extern "C" int e3d_flash_attn_fwd_heads(
   return dispatch(pipe ? kK5Pipe : kK5Loop, q, k, v, o, lse, batch, n_tok,
                   n_heads, head_dim, hb, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                   v_sb, v_sn, v_sh, scale, stream);
+}
+
+// The last launch of the entries above: its grid in `blocks`, and in
+// `per_sm` the blocks of its kernel that one SM holds at once (the
+// occupancy calculator at its block size and dynamic shared memory).
+// Returns the calculator's error, or cudaErrorInvalidValue before any
+// launch.
+extern "C" int e3d_flash_attn_fwd_last_launch(long long* blocks,
+                                              int* per_sm) {
+  if (g_last.kernel == nullptr) return cudaErrorInvalidValue;
+  *blocks = g_last.blocks;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, g_last.kernel, g_last.threads, g_last.smem);
 }

@@ -1,0 +1,425 @@
+// Hopper (sm_90a) primitives shared by the warp-specialised attention
+// kernels of flash_attn_fwd.cu and flash_attn_bwd.cu: shared-memory
+// addressing and the swizzled 64-row tile, mbarriers, TMA loads and
+// stores, bulk-group waits, named barriers, wgmma (descriptors, fence,
+// commit, wait, the m64nNk16 products with A from shared memory or from
+// registers), setmaxnreg, and the host-side tensor-map encoder reached
+// through the driver entry point, so no library links libcuda.
+//
+// Included by each source; utils/cbuild.py folds every csrc/*.cuh into
+// each library's hash, so a change here rebuilds both.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTileRows = 64;  // rows of one wgmma tile (its M or N)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 24 x 128 + 240 x 256 <= 64K
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry of a 64-row bf16 tile at head dim D as TMA
+// writes it and wgmma reads it: rows of D * 2 bytes, 128B swizzle at D 64
+// and 64B at D 32 (the row is the swizzle span), 8-row atoms.
+template <int D>
+struct SwizzledTile {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kBytes = kTileRows * kRowBytes;
+  static constexpr uint32_t kAtom = 8 * kRowBytes;        // descriptor SBO
+  static constexpr uint64_t kMode = D == 64 ? 1 : 2;      // wgmma 128B / 64B
+  static constexpr CUtensorMapSwizzle kTma =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+
+  // Where byte `off` of the unswizzled tile lies: TMA's and wgmma's
+  // swizzle XORs the 16-byte chunk index with address bits 7.. (three of
+  // them at 128B, two at 64B). The tile must start on 1024 bytes.
+  __device__ __forceinline__ static uint32_t swizzle(uint32_t off) {
+    constexpr uint32_t kMask = D == 64 ? 7 : 3;
+    return off ^ (((off >> 7) & kMask) << 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory, its shared-space address rounded up to 1024
+// bytes (the swizzle atoms' alignment); each kernel asks for 1 KB more.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading byte
+// offset 16 (unused by these layouts: swizzled K-major, and MN-major with
+// one swizzle atom across M or N), stride byte offset between 8-row atoms
+// along M/N (K-major) or K (MN-major), and the swizzle mode.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+// ------------------------------------------------------------ mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// ------------------------------------------------------ TMA, bulk groups
+
+// One box of a rank-4 tensor map into shared memory, completing on `bar`;
+// elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box from shared memory into a rank-4 tensor map, as one bulk group;
+// elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The shared memory of every bulk group issued so far has been read.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Every bulk group issued so far has completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Generic-proxy shared-memory writes become visible to wgmma and to bulk
+// copies (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers (0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma registers
+// across the asynchronous instructions that own them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64 f32) += A (64 x 16, shared) * B (16 x 64, shared).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16, registers) * B (16 x 64, shared).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 32 f32) += A (64 x 16, shared) * B (16 x 32, shared).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 32 f32) += A (64 x 16 bf16, registers) * B (16 x 32, shared).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// d (64 x 128 f32) += A (64 x 16, shared) * B (16 x 128, shared).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// 64 x N products by N, N = 128 (A from shared memory only), 64 or 32
+// (the f32 accumulator: N / 2
+// registers a thread, row warp * 16 + lane / 4 (+ 8), columns
+// 8 j + 2 (lane % 4) (+ 1)).
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128<kTransA, kTransB>(d, a, b, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64<kTransA, kTransB>(d, a, b, accumulate);
+  } else {
+    wgmma_ss_n32<kTransA, kTransB>(d, a, b, accumulate);
+  }
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64<kTransB>(d, a, b, accumulate);
+  } else {
+    wgmma_rs_n32<kTransB>(d, a, b, accumulate);
+  }
+}
+
+template <int kRows>
+__device__ __forceinline__ void zero(float (&d)[kRows]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) d[i] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 64 x N f32 accumulator (R = N / 2 registers) as the bf16 A operands
+// of N / 16 k16 steps of a register-A wgmma (its columns become the
+// product's K).
+template <int R>
+__device__ __forceinline__ void to_a_operand(const float (&d)[R],
+                                             uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * (2 * kk + r / 2) + 2 * (r % 2);
+      a[kk][r] = pack_bf16(d[i], d[i + 1]);
+    }
+  }
+}
+
+// Register split of a producer warpgroup and its consumers; each must sit
+// at the top of one branch of a single role split (else ptxas ignores it:
+// note C7508).
+__device__ __forceinline__ void setmaxnreg_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+}
+
+__device__ __forceinline__ void setmaxnreg_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+}
+
+// ------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links no libcuda.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-4 bf16 tensor map: dims innermost first (dims[0] contiguous),
+// byte strides of dims 1..3, a box, and the swizzle of the tile it fills.
+inline CUresult encode_bf16_4d(EncodeTiled fn, CUtensorMap* map,
+                               const void* base, const cuuint64_t (&dims)[4],
+                               const cuuint64_t (&strides)[3],
+                               const cuuint32_t (&box)[4],
+                               CUtensorMapSwizzle swizzle) {
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Dynamic shared memory above 48 KB only after opting in (per kernel and
+// device; set before every launch, a host-side call).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace hopper

@@ -9,10 +9,15 @@ hand-written Hopper kernel in ``csrc/flash_attn_fwd.cu`` (bf16, D in
 projection go in without copies) or raises; on CPU tensors it computes
 ``flash_attention_reference``. The kernels mask the ragged edges by index,
 so no caller pads the token axis. Which forward kernel runs follows the
-JAX package's knobs (``forward_schedule``): K1 by default, K4 (two heads
-per block, ``E3D_FLASH_PAIR``) or K5 (a block of heads per block,
-``E3D_FLASH_PIPE`` / ``E3D_FLASH_HLOOP``); all three give the same O and
-LSE.
+JAX package's knobs (``forward_schedule``): K1 by default (``mma.sync``,
+one block per head and 64-query tile), K4 (``E3D_FLASH_PAIR``: two heads
+per block, each K and V tile of both brought by one TMA load) or K5
+(``E3D_FLASH_PIPE`` / ``E3D_FLASH_HLOOP``: a block of heads per block,
+walked with or without cross-head overlap). K4 and K5 are warp-specialised
+(a TMA producer warpgroup, two ``wgmma`` consumer warpgroups) and read q,
+k and v by TMA, so they take only views TMA can read (``_tma_ok``) and
+raise on others. All three compute K1's function; K4's and K5's sums run
+in another order, so their O and LSE agree with K1's to within rounding.
 
 The backward has two schedules, as in the JAX package: K2
 (``flash_attention_bwd_fused``, one pass over key blocks, dQ summed across
@@ -57,7 +62,7 @@ _BWD_DEFAULT = "1"
 _BWD_FUSED = os.environ.get("E3D_FLASH_BWD_FUSED", _BWD_DEFAULT) == "1"
 # The forward schedule, from the same module's knobs: E3D_FLASH_PAIR=1
 # selects K4, E3D_FLASH_PIPE=1 or E3D_FLASH_HLOOP=1 K5. All three compute
-# K1's function; the backward stays K2 or K3.
+# K1's function, LSE included, so the backward stays K2 or K3.
 _PAIR = os.environ.get("E3D_FLASH_PAIR", "0") == "1"
 _PIPE = os.environ.get("E3D_FLASH_PIPE", "0") == "1"
 _HLOOP = os.environ.get("E3D_FLASH_HLOOP", "0") == "1"
@@ -208,6 +213,18 @@ def _tma_ok(x: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+def _require_tma(what: str, **views: torch.Tensor) -> None:
+    """Raise ValueError, naming the strides, for a view TMA cannot read:
+    K4 and K5 load q, k and v only by TMA and take no other path."""
+    for name, x in views.items():
+        if not _tma_ok(x):
+            raise ValueError(f"{what}: {name} (strides {tuple(x.stride())}, "
+                             f"{x.element_size()}-byte elements) is not a "
+                             "view TMA can read: unit stride on D, other "
+                             "strides non-zero multiples of 16 bytes, "
+                             "16-byte aligned base")
+
+
 def _check(q: torch.Tensor, *others: tuple[str, torch.Tensor]) -> None:
     for name, x in (("q", q), *others):
         if x.device.type != "cuda" or x.device != q.device:
@@ -291,6 +308,9 @@ def _launch_fwd(entry: str, q, k, v, *extra) -> tuple[torch.Tensor,
                  lse.data_ptr(), b, n, h, d, *q.stride()[:3],
                  *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d),
                  *extra, stream)
+    if err < 0:
+        raise RuntimeError(f"{entry}: a TMA tensor map could not be encoded "
+                           f"(CUresult {-err})")
     if err:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
     return o, lse
@@ -325,11 +345,13 @@ flash_attention.launches = 0
 def flash_attention_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K4: K1's function, two heads of the B*H axis per block (B*H
-    even). CPU tensors take the plain version; CUDA tensors launch K4 and
-    add one to ``flash_attention_pair.launches``, or raise."""
+    even), one consumer warpgroup per head. CPU tensors take the plain
+    version; CUDA tensors that TMA can read launch K4 and add one to
+    ``flash_attention_pair.launches``; anything else raises."""
     _refuse_autograd(q, k, v)
     if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v)
+    _require_tma("flash_attention_pair", q=q, k=k, v=v)
     if (q.shape[0] * q.shape[2]) % 2:
         raise ValueError(f"flash_attention_pair: B*H = {q.shape[0]} x "
                          f"{q.shape[2]} is odd; K4 pairs heads")
@@ -343,14 +365,16 @@ flash_attention_pair.launches = 0
 
 def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pipe: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel K5: K1's function, ``head_block`` heads of the B*H axis per
-    block, pipelined across heads when ``pipe`` (the JAX package's
-    ``E3D_FLASH_PIPE``) or looped (``E3D_FLASH_HLOOP``). CPU tensors take
-    the plain version; CUDA tensors launch K5 and add one to
-    ``flash_attention_heads.launches``, or raise."""
+    """Kernel K5: K1's function, ``head_block`` heads of the B*H axis and
+    128 queries per block, pipelined across heads when ``pipe`` (the JAX
+    package's ``E3D_FLASH_PIPE``) or looped (``E3D_FLASH_HLOOP``). CPU
+    tensors take the plain version; CUDA tensors that TMA can read launch
+    K5 and add one to ``flash_attention_heads.launches``; anything else
+    raises."""
     _refuse_autograd(q, k, v)
     if _on_cpu(q, k, v):
         return flash_attention_reference(q, k, v)
+    _require_tma("flash_attention_heads", q=q, k=k, v=v)
     b, n, h, d = q.shape
     out = _launch_fwd(_K5_ENTRY, q, k, v, head_block(b * h, n, d),
                       int(pipe))
@@ -375,12 +399,7 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool
         do = do.contiguous()
     _check(q, ("k", k), ("v", v), ("o", o), ("dO", do), ("dq", dq),
            ("dk", dk), ("dv", dv))
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not _tma_ok(x):
-            raise ValueError(f"flash_attention: {name} (strides "
-                             f"{x.stride()}) is not a view TMA can read: "
-                             "unit stride on D, other strides non-zero "
-                             "multiples of 16 bytes, 16-byte aligned base")
+    _require_tma("flash_attention", q=q, k=k, v=v)
     b, n, h, d = q.shape
     if (lse.shape != (b, h, n) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):

@@ -152,6 +152,37 @@ def test_variants_refuse_meta_tensors_and_autograd():
         tfa.flash_attention_pair(x, x, x)
 
 
+@pytest.mark.parametrize("kind", ["pair", "pipe", "hloop"])
+@pytest.mark.parametrize("view", ["zero stride", "misaligned stride"])
+def test_variants_refuse_views_tma_cannot_read(view, kind, monkeypatch):
+    """K4 and K5 load q, k and v only by TMA, so off the CPU a view with a
+    zero stride or a stride that is not a multiple of 16 bytes raises a
+    ValueError naming its strides, before any build (meta tensors stand in
+    for the card; the packed projection's views pass)."""
+    def no_build(name):
+        raise AssertionError(f"built {name} for a view the kernel refuses")
+
+    monkeypatch.setattr(tfa.cbuild, "load", no_build)
+    q, k, v = torch.empty(2, 16, 3, 2, 64, dtype=torch.bfloat16,
+                          device="meta").unbind(2)
+    assert all(tfa._tma_ok(x) for x in (q, k, v))
+    if view == "zero stride":
+        bad = k[:, :1].expand_as(k)
+    else:  # rows of 68 elements: a head stride of 136 bytes
+        bad = torch.empty(2, 16, 2, 68, dtype=torch.bfloat16,
+                          device="meta")[..., :64]
+    call = {"pair": tfa.flash_attention_pair,
+            "pipe": lambda *x: tfa.flash_attention_heads(*x, pipe=True),
+            "hloop": lambda *x: tfa.flash_attention_heads(*x, pipe=False)}
+    counts = (tfa.flash_attention_pair.launches,
+              tfa.flash_attention_heads.launches)
+    with pytest.raises(ValueError,
+                       match=r"k \(strides .*\) is not a view TMA can read"):
+        call[kind](q, bad, v)
+    assert (tfa.flash_attention_pair.launches,
+            tfa.flash_attention_heads.launches) == counts
+
+
 _PROBE = """
 import sys
 sys.modules["jax"] = None
