@@ -37,8 +37,9 @@ After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
 where the toolkit has ``cuobjdump``, how many ``wgmma`` (HGMMA),
 ``mma.sync`` (HMMA), TMA and bulk-copy instructions and scalar atomics
-each attention kernel holds; the warp-specialised kernels (K2, K3, K4,
-K5) must keep their ``wgmma`` and TMA, and K4 and K5 hold no ``mma.sync``.
+each attention kernel holds; the warp-specialised kernels (K1 to K5)
+must keep their ``wgmma`` and TMA, and the forwards (K1, K4, K5) hold no
+``mma.sync``.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and exits
@@ -155,11 +156,17 @@ def phase_build() -> None:
                 # (C75xx): ptxas notes on wgmma and setmaxnreg, such as a
                 # serialized wgmma chain or an ignored register count.
                 print(f"  ptxas:   {line.strip()}")
-    # The verdict on K5's cross-head overlap among the rest: any note on
-    # flash_attn_fwd_heads_kernel<*, 1> means ptxas serialized it.
+    # The verdicts on the overlaps among the rest: any note on K1
+    # (flash_attn_fwd_kernel<*>: softmax under the products) or on
+    # flash_attn_fwd_heads_kernel<*, 1> (K5's cross-head overlap) means
+    # ptxas serialized it.
     print("  ptxas C75xx notes by attention kernel: "
           + (", ".join(f"{k} {sorted(set(v))}" for k, v in notes.items())
              or "none"))
+    k1 = {k: sorted(set(v)) for k, v in notes.items()
+          if k.startswith("flash_attn_fwd_kernel<")}
+    print(f"  ptxas C75xx notes on K1 (flash_attn_fwd_kernel<32>, <64>): "
+          f"{k1 or 'none'}")
 
 
 # SASS opcodes that show how an attention kernel moves data and
@@ -173,10 +180,10 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "UBLKCP", "UBLKRED",
 def phase_sass() -> None:
     """Per attention kernel, its count of each of ``SASS_OPS`` from
     ``cuobjdump -sass`` of the two built libraries. The backward's dK/dV
-    and dQ kernels and the forward's K4 and K5 (both schedules, D 32 and
-    64) must issue wgmma and TMA loads, and K4 and K5 no mma.sync; K2's dQ
-    must leave by bulk reduction and no kernel by scalar atomics. K1
-    (mma.sync) is printed only."""
+    and dQ kernels and the forward's K1, K4 and K5 (both schedules; D 32
+    and 64) must issue wgmma and TMA loads, and the forwards no mma.sync;
+    K2's dQ must leave by bulk reduction and no kernel by scalar
+    atomics."""
     import os
     import re
     import shutil
@@ -213,17 +220,18 @@ def phase_sass() -> None:
     for fn, c in counts.items():
         print(f"  sass {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
     bwd = [fn for fn in counts if "_dkv_" in fn or "_dq_" in fn]
-    fwd = [fn for fn in counts if "_pair_" in fn or "_heads_" in fn]
+    fwd = [fn for fn in counts if fn.startswith("flash_attn_fwd")]
     bad = [fn for fn in bwd + fwd
            if not counts[fn]["HGMMA"] or not counts[fn]["UTMALDG"]]
     bad += [fn for fn in fwd if counts[fn]["HMMA"]]
     bad += [fn for fn, c in counts.items() if c["atomics"]]
     bad += [fn for fn in bwd if "_dkv_" in fn and fn.endswith(", 1>")
             and not counts[fn]["UBLKRED"]]
-    # dK/dV <32|64, 0|1>, dQ <32|64>; K4 <32|64>, K5 <32|64, 0|1>.
-    if len(bwd) != 6 or len(fwd) != 6 or bad:
+    # dK/dV <32|64, 0|1>, dQ <32|64>; K1 <32|64>, K4 <32|64>,
+    # K5 <32|64, 0|1>.
+    if len(bwd) != 6 or len(fwd) != 8 or bad:
         raise AssertionError(f"sass: kernels {sorted(counts)}; without "
-                             f"wgmma or TMA, with mma.sync (K4, K5), "
+                             f"wgmma or TMA, with mma.sync (K1, K4, K5), "
                              f"without the bulk reduction, or with scalar "
                              f"atomics: {bad}")
 
@@ -319,6 +327,15 @@ def phase_forward(label: str, name: str, line: int, call) -> dict:
           f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
           f"MB), {flops / ms / 1e9:.1f} TFLOP/s; {blocks} blocks, {per_sm} "
           f"per SM on {sms} SMs, {blocks / (per_sm * sms):.2f} waves")
+    # The same work at D 32 (the smaller encoders' head dim): the kernel
+    # beside SDPA, printed only.
+    d32 = (b, n, h, 32)
+    q32, k32, v32 = _attention_case(*d32, 0)
+    ms32 = _cuda_ms(lambda: call(q32, k32, v32), iters=50)
+    q32, k32, v32 = (x.transpose(1, 2).contiguous() for x in (q32, k32, v32))
+    sdpa32 = _cuda_ms(lambda: F.scaled_dot_product_attention(q32, k32, v32),
+                      iters=50)
+    print(f"{label} {d32}: kernel {ms32:.4f} ms, SDPA {sdpa32:.4f} ms")
     rec = {"name": name, "route": "cuda",
            "source": f"{PKG}/csrc/flash_attn_fwd.cu",
            "replaces": f"{JAX_FLASH}:{line}",

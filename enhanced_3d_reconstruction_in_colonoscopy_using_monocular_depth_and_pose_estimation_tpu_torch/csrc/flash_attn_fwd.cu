@@ -6,9 +6,9 @@
 //   S[:, j] = -1e30 for key j >= N   (ragged key edge, masked by index)
 //   O   = (bf16(P) V) / l,  P = exp(S - m),  m = rowmax S,  l = sum P
 //   LSE = m + log l
-// in the log2 domain, with an online softmax over tiles of keys (64 in K1,
-// 128 in K4 and K5): a running row max m, a running sum l and a rescale of
-// the f32 O accumulator whenever m grows. As on the TPU, P is rounded to bf16
+// in the log2 domain, with an online softmax over 128-key tiles: a
+// running row max m, a running sum l and a rescale of the f32 O
+// accumulator whenever m grows. As on the TPU, P is rounded to bf16
 // unnormalised before the PV product and the division by l follows it,
 // in f32; LSE = m ln2 + log l is rounded operation by operation (the _rn
 // intrinsics). O is written (B, N, H, D) bf16 and LSE (B, H, N) f32. q, k
@@ -16,35 +16,48 @@
 // the packed qkv projection (B, N, 3, H, D) without copies; nothing is
 // padded, and rows at or past N are never written.
 //
-// K1 replaces ops/flash_attention.py::_fwd_kernel / _fwd_one_head of the
-// JAX package. The TPU kernel keeps a head's whole K and V resident in
-// VMEM. At N = 1370, D = 64 that is 351 KB, more than the 227 KB a block
-// can have, so K and V stream through shared memory. One block of four
-// warps owns one (batch*head, 64-query tile); each warp owns 16 query
-// rows. Rows past N are zero-filled in shared memory. The products run
-// on the tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate)
-// fed by ldmatrix; the next K/V tile is fetched with cp.async while the
-// current one is consumed (two stages).
+// All three are warp-specialised: a producer warpgroup and two consumer
+// warpgroups (three in K1). Warpgroup 0 is the producer: it drops to 24
+// registers (setmaxnreg) and one thread issues every TMA load (rank-4
+// tensor maps over the strided (B, N, H, D) views, dims (D, N, H, B),
+// 128B swizzle at D 64 and 64B at D 32), K and V streaming in 128-key
+// tiles through a two-stage ring of full/empty mbarriers (at N = 1370, 11
+// tiles, the last holding 90 keys). The consumers (240 registers each,
+// 160 in K1) own 64 query rows each: S = Q K^T by wgmma from shared
+// memory (both tiles K-major), the mask, running max, rescale and P in
+// registers, then O += bf16(P) V by wgmma with A from registers (the S
+// accumulator's layout is the A operand's, so P never touches shared
+// memory) and V read MN-major. TMA zero-fills rows at or past N; keys
+// there are still masked by index, since a zero K row gives S = 0, not
+// -inf. A finished head's O leaves through the consumer's own swizzled
+// staging tile by one TMA store, which clips at N; LSE from the thread
+// that holds the row. No register of a wgmma group in flight is read or
+// fenced before the wait that retires it (else ptxas serializes the
+// chain: notes C7514, C7515, C7518). The three take their sums in
+// different orders, so their O and LSE agree to within rounding, not bit
+// for bit.
 //
-// K4 and K5 are warp-specialised: one block of three warpgroups.
-// Warpgroup 0 is the producer: it drops to 24 registers (setmaxnreg) and
-// one thread issues every TMA load (rank-4 tensor maps over the strided
-// (B, N, H, D) views, dims (D, N, H, B), 128B swizzle at D 64 and 64B at
-// D 32), K and V streaming in 128-key tiles through a two-stage ring of
-// full/empty mbarriers (at N = 1370, 11 tiles, the last holding 90
-// keys). Warpgroups 1 and 2 are consumers at 240 registers, each owning
-// 64 query rows; per key tile (consumer_step): S = Q K^T by wgmma
-// from shared memory (both tiles K-major), a wait, the mask, running max,
-// rescale and P in registers, then O += bf16(P) V by wgmma with A from
-// registers (the S accumulator's layout is the A operand's, so P never
-// touches shared memory) and V read MN-major. TMA zero-fills rows at or
-// past N; keys there are still masked by index, since a zero K row gives
-// S = 0, not -inf. A finished head's O leaves through the consumer's own
-// swizzled staging tile by one TMA store, which clips at N; LSE from the
-// thread that holds the row. Each wgmma group is waited for before the
-// accumulators it writes are read. Their sums are taken in another order
-// than K1's, so O and LSE agree with K1's to within rounding, not bit for
-// bit.
+// K1 replaces ops/flash_attention.py::_fwd / _fwd_kernel / _fwd_one_head
+// of the JAX package, the default forward. The TPU kernel keeps a head's
+// whole K and V resident in VMEM; at N = 1370, D = 64 that is 351 KB, more
+// than the 227 KB a block can have, so K and V stream through the ring,
+// each with its own full and empty barrier per stage. Three consumers
+// own a (batch*head, 192-query tile); a persistent grid of one block per
+// SM walks the tiles (1024 at vitl, 7.76 a block), so one tile's last
+// products and output store overlap the next tile's loads. Two consumers
+// (1408 tiles of 128 queries) measured slower despite padding less
+// (PERF.md). Consumers whose rows all lie past N only pass their turns
+// and release the stages. Its bound at vitl is two near-equal parts
+// (below), so K1 is built to run the exponentials and the products at
+// once. In each consumer, key tile j's scores and tile j-1's PV are
+// issued together and only the scores are waited for (wgmma wait depth
+// 1): tile j's softmax runs on the special-function units while PV j-1
+// runs on the tensor cores, and O's rescale and bf16(P) follow the wait
+// for PV j-1 (so one score buffer suffices: tile j's scores become P
+// before tile j+1's are issued). Between the consumers, named barriers
+// make them take turns at issuing their products, so each one's softmax
+// also runs under the others'. Each P is one fma and one ex2.approx; the
+// mask runs on the last key tile only.
 //
 // K4 replaces _fwd_pair / _fwd_pair_kernel (E3D_FLASH_PAIR=1): one block
 // per (heads 2p and 2p+1 of the B*H axis, 64-query tile), consumer g
@@ -54,7 +67,9 @@
 // What pairing buys here is the load: where both heads lie in one batch
 // row, one TMA box of (D, rows, 2 heads) brings each Q, K and V tile of
 // both; where the pair straddles two batch rows (odd H), two boxes land in
-// the same stage under one transaction count.
+// the same stage under one transaction count. Per key tile
+// (consumer_step) a consumer waits for its scores before its softmax and
+// for PV before its next scores.
 //
 // K5 replaces _fwd_kernel with hb heads per program under E3D_FLASH_PIPE=1
 // (_fwd_kernel_pipe / _fwd_scores / _fwd_finish) and E3D_FLASH_HLOOP=1
@@ -76,10 +91,10 @@
 //   Q, K, V, O = 4 x 22.4 MB = 90 MB             -> 27 us at 3.35 TB/s;
 //   B H N^2 = 240 M exponentials, about 65 us at 16 a clock per SM on
 //   the special-function units.
-// So they are compute-bound. One consumer's softmax can hide under the
-// other's products, not under its own. K4 runs 1408 blocks at vitl and
-// K5 704 (hb = 2), one block per SM (its 384 threads hold the register
-// file), so 10.7 and 5.3 waves on 132 SMs.
+// So they are compute-bound, and only a schedule that runs the
+// exponentials under the products (K1's) can approach the larger part.
+// K4 runs 1408 blocks at vitl and K5 704 (hb = 2), one block per SM (its
+// 384 threads hold the register file), so 10.7 and 5.3 waves on 132 SMs.
 
 #include <math.h>
 #include <stdint.h>
@@ -90,302 +105,14 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBlockM = 64;   // query rows per block (per head)
-constexpr int kBlockN = 64;   // keys per shared-memory tile
-constexpr int kWarps = 4;     // warps per head; each owns 16 query rows
-constexpr int kThreads = kWarps * 32;
-constexpr int kKeyTiles = kBlockN / 8;  // n-tiles of Q K^T
 constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
 constexpr float kLn2 = 0.6931471805599453f;
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  const int src_bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Row pitch D + 8 keeps ldmatrix's eight 16-byte row reads on distinct
-// banks and every row 16-byte aligned.
-template <int D>
-struct Tile {
-  static constexpr int kStride = D + 8;
-  static constexpr int kElems = kBlockM * kStride;  // one 64-row tile
-};
-
-// Copy rows [row0, row0 + 64) of a (rows, D) strided slab into a padded
-// shared tile with a block's four warps; rows >= n_rows are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < n_rows;
-    const bf16* g = src + (long long)(valid ? row : 0) * row_stride + c * 8;
-    cp_async_16(tile + r * Tile<D>::kStride + c * 8, g, valid);
-  }
-}
-
-// One warp's running state for its 16 query rows of one head.
-template <int D>
-struct WarpState {
-  static constexpr int kDSteps = D / 16;  // k-steps of Q K^T
-  static constexpr int kDTiles = D / 8;   // n-tiles of P V
-  uint32_t q[kDSteps][4];
-  float o[kDTiles][4];
-  // Rows g and g + 8 of the warp's 16; m is kept in the log2 domain.
-  float m[2];
-  float l[2];  // this lane's share of l
-
-  __device__ __forceinline__ void reset() {
-#pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    }
-    m[0] = m[1] = -INFINITY;
-    l[0] = l[1] = 0.f;
-  }
-};
-
-// The warp's Q fragments (rows row0 .. row0 + 15 of the tile).
-template <int D>
-__device__ __forceinline__ void load_q(uint32_t (&q)[D / 16][4],
-                                       const bf16* s_q, int row0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldmatrix_x4(q[kk], s_q + (row0 + lane % 16) * Tile<D>::kStride + kk * 16 +
-                           (lane / 16) * 8);
-  }
-}
-
-// S = Q K^T for the warp's 16 rows and the tile's 64 keys.
-template <int D>
-__device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4],
-                                            const uint32_t (&q)[D / 16][4],
-                                            const bf16* sk, int lane) {
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; j += 2) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, sk + (j * 8 + (lane / 16) * 8 + lane % 8) *
-                               Tile<D>::kStride +
-                           kk * 16 + ((lane / 8) % 2) * 8);
-      mma_bf16(s[j], q[kk], kf[0], kf[1]);
-      mma_bf16(s[j + 1], q[kk], kf[2], kf[3]);
-    }
-  }
-}
-
-// Online-softmax update with one tile's scores, then O += bf16(P) V. The
-// running sum l and the LSE are rounded operation by operation (the _rn
-// intrinsics), as in K4's and K5's softmax_pv and store_head.
-template <int D>
-__device__ __forceinline__ void tile_softmax_pv(WarpState<D>& st,
-                                                float (&s)[kKeyTiles][4],
-                                                const bf16* sv, int key0,
-                                                int n_tok, float scale_log2,
-                                                int lane) {
-  constexpr int kKeySteps = kBlockN / 16;
-  const int t = lane % 4;  // accumulator column pair
-  // Scale into the log2 domain, mask keys >= N, update the row max.
-  float m_new[2] = {st.m[0], st.m[1]};
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key0 + j * 8 + 2 * t + (e & 1);
-      const float x = key < n_tok ? s[j][e] * scale_log2 : kMaskValue;
-      s[j][e] = x;
-      m_new[e / 2] = fmaxf(m_new[e / 2], x);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-  }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    alpha[r] = exp2f(st.m[r] - m_new[r]);
-    st.m[r] = m_new[r];
-    st.l[r] = __fmul_rn(st.l[r], alpha[r]);
-  }
-#pragma unroll
-  for (int j = 0; j < WarpState<D>::kDTiles; ++j) {
-    st.o[j][0] *= alpha[0];
-    st.o[j][1] *= alpha[0];
-    st.o[j][2] *= alpha[1];
-    st.o[j][3] *= alpha[1];
-  }
-
-  // P = exp(S - m): l sums the f32 values, the PV product takes bf16(P).
-  // The accumulator layout of key tiles 2kk and 2kk+1 is exactly the A
-  // operand layout of k-step kk.
-  uint32_t p_frag[kKeySteps][4];
-#pragma unroll
-  for (int j = 0; j < kKeyTiles; ++j) {
-    const float p0 = exp2f(s[j][0] - st.m[0]);
-    const float p1 = exp2f(s[j][1] - st.m[0]);
-    const float p2 = exp2f(s[j][2] - st.m[1]);
-    const float p3 = exp2f(s[j][3] - st.m[1]);
-    st.l[0] = __fadd_rn(st.l[0], __fadd_rn(p0, p1));
-    st.l[1] = __fadd_rn(st.l[1], __fadd_rn(p2, p3));
-    p_frag[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-    p_frag[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
-  }
-
-  // O += P V.
-#pragma unroll
-  for (int kk = 0; kk < kKeySteps; ++kk) {
-#pragma unroll
-    for (int j = 0; j < WarpState<D>::kDTiles; j += 2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, sv + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) *
-                                     Tile<D>::kStride +
-                                 j * 8 + (lane / 16) * 8);
-      mma_bf16(st.o[j], p_frag[kk], vf[0], vf[1]);
-      mma_bf16(st.o[j + 1], p_frag[kk], vf[2], vf[3]);
-    }
-  }
-}
-
-// Normalise and write the warp's rows row0 .. row0 + 15 of head (b, h):
-// O into contiguous (B, N, H, D), LSE into contiguous (B, H, N).
-template <int D>
-__device__ __forceinline__ void store_rows(const WarpState<D>& st,
-                                           bf16* __restrict__ o,
-                                           float* __restrict__ lse, int b,
-                                           int h, int n_tok, int n_heads,
-                                           int row0, int lane) {
-  const int g = lane / 4;  // accumulator row within the warp's 8-row half
-  const int t = lane % 4;
-  float l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = st.l[r];
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const int row[2] = {row0 + g, row0 + g + 8};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= n_tok) continue;
-    bf16* orow = o + (((long long)b * n_tok + row[r]) * n_heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < WarpState<D>::kDTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          pack_bf16(st.o[j][2 * r] / l[r], st.o[j][2 * r + 1] / l[r]);
-    }
-    if (t == 0) {
-      lse[((long long)b * n_heads + h) * n_tok + row[r]] =
-          __fadd_rn(__fmul_rn(st.m[r], kLn2), logf(l[r]));
-    }
-  }
-}
 
 struct Strides {
   long long q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh;
 };
 
-// ---------------------------------------------------------------- K1
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int n_tok, int n_heads,
-                      Strides st_, float scale_log2) {
-  __shared__ __align__(16) bf16 s_q[Tile<D>::kElems];
-  __shared__ __align__(16) bf16 s_k[2][Tile<D>::kElems];
-  __shared__ __align__(16) bf16 s_v[2][Tile<D>::kElems];
-
-  const int n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  const int bh = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kBlockM;
-  const int b = bh / n_heads;
-  const int h = bh % n_heads;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  const bf16* qb = q + b * st_.q_sb + h * st_.q_sh;
-  const bf16* kb = k + b * st_.k_sb + h * st_.k_sh;
-  const bf16* vb = v + b * st_.v_sb + h * st_.v_sh;
-
-  load_tile<D>(s_q, qb, st_.q_sn, q0, n_tok);
-  load_tile<D>(s_k[0], kb, st_.k_sn, 0, n_tok);
-  load_tile<D>(s_v[0], vb, st_.v_sn, 0, n_tok);
-  cp_async_commit();
-
-  WarpState<D> st;
-  st.reset();
-  const int n_ktiles = (n_tok + kBlockN - 1) / kBlockN;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_ktiles) {
-      load_tile<D>(s_k[stage ^ 1], kb, st_.k_sn, (kt + 1) * kBlockN, n_tok);
-      load_tile<D>(s_v[stage ^ 1], vb, st_.v_sn, (kt + 1) * kBlockN, n_tok);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) load_q<D>(st.q, s_q, warp * 16, lane);
-    float s[kKeyTiles][4];
-    tile_scores<D>(s, st.q, s_k[stage], lane);
-    tile_softmax_pv<D>(st, s, s_v[stage], kt * kBlockN, n_tok, scale_log2,
-                       lane);
-    __syncthreads();  // the next iteration refills this stage
-  }
-  store_rows<D>(st, o, lse, b, h, n_tok, n_heads, q0 + warp * 16, lane);
-}
-
-// ------------------------------------------------------- K4, K5: shared
+// ----------------------------------------------------- K1, K4, K5: shared
 
 constexpr int kWgConsumers = 2;  // consumer warpgroups per block
 constexpr int kWgThreads = 128 * (1 + kWgConsumers);  // producer first
@@ -433,18 +160,37 @@ __device__ __forceinline__ void issue_scores(float (&s)[kScores],
   wgmma_commit();
 }
 
+// Issue O += bf16(P) V for one key tile as one wgmma group, with P from
+// registers (the score accumulator's layout is the A operand's, so P
+// never touches shared memory) and V (a tile of keys x D) read MN-major,
+// a k16 step being 16 key rows. Not waited for: until the wait that
+// retires it, neither o nor p may be touched.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[kWgKeys / 16][4],
+                                         uint32_t s_v) {
+  using T = STile<D>;
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+    wgmma_rs<D, 1>(o, p[kk],
+                   make_desc(s_v + kk * 16 * T::kRowBytes, T::kAtom, T::kMode),
+                   1);
+  }
+  wgmma_commit();
+}
+
 // The rest of a consumer step, on scores already waited for: scale into
 // the log2 domain, mask keys >= N, update the running max, rescale O and
-// l, form P (l sums the f32 values), then O += bf16(P) V with P from
-// registers and V (a tile of keys x D) read MN-major, a k16 step being 16
-// key rows. Waits for every group of the warpgroup, so one issued before
-// it (the next head's scores) has completed on return too.
+// l, form P (l sums the f32 values), then O += bf16(P) V (issue_pv).
+// Waits for every group of the warpgroup, so one issued before it (the
+// next head's scores) has completed on return too.
 template <int D>
 __device__ __forceinline__ void softmax_pv(RowState<D>& st,
                                            float (&s)[kScores], uint32_t s_v,
                                            int key0, int n_tok,
                                            float scale_log2, int t) {
-  using T = STile<D>;
   float m_new[2] = {st.m[0], st.m[1]};
 #pragma unroll
   for (int j = 0; j < kWgKeys / 8; ++j) {
@@ -490,15 +236,7 @@ __device__ __forceinline__ void softmax_pv(RowState<D>& st,
   }
   uint32_t p[kWgKeys / 16][4];
   to_a_operand(s, p);
-  fence_regs(st.o);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-    wgmma_rs<D, 1>(st.o, p[kk],
-                   make_desc(s_v + kk * 16 * T::kRowBytes, T::kAtom, T::kMode),
-                   1);
-  }
-  wgmma_commit();
+  issue_pv<D>(st.o, p, s_v);
   wgmma_wait<0>();
   fence_regs(st.o);
 }
@@ -567,6 +305,301 @@ __device__ __forceinline__ void store_head(const RowState<D>& st,
   fence_proxy_async();
   bar_sync(kBarStore + w, 128);
   if (tid == 0) tma_store_4d(map_o, s_o, 0, row0, h, b);
+}
+
+// ---------------------------------------------------------------- K1
+
+// Three consumers of 64 rows (192 queries a tile) measured faster than
+// two on the H100, and a third stage bought nothing (PERF.md).
+constexpr int kK1Consumers = 3;
+constexpr int kK1Threads = 128 * (1 + kK1Consumers);
+constexpr int kK1Regs = 160;  // 24 x 128 + 160 x 384 <= 64K
+constexpr int kK1Stages = 2;
+constexpr int kBarTurn = kBarStore + kK1Consumers;  // + consumer: its turn
+
+template <int D>
+struct K1Smem {
+  static constexpr int kTile = STile<D>::kBytes;  // 64 rows: Q or O
+  static constexpr int kKv = kWgKeys * STile<D>::kRowBytes;  // K or V
+  static constexpr int kQ = 0;                               // [consumer]
+  static constexpr int kK = kQ + kK1Consumers * kTile;       // [stage]
+  static constexpr int kV = kK + kK1Stages * kKv;            // [stage]
+  static constexpr int kO = kV + kK1Stages * kKv;            // [consumer]
+  static constexpr int kBars = kO + kK1Consumers * kTile;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty per stage.
+  static constexpr int kBytes = kBars + (2 + 4 * kK1Stages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// 2^x by the special-function unit alone (ex2.approx, flushing
+// subnormal results to zero): one instruction where exp2f adds range
+// handling around it.
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one key tile's scores, in place: keys >= N masked
+// by index (only the last, ragged tile has any), the running max m (log2
+// domain) and sum l updated, and S replaced by P = exp2(S scale - m) in
+// f32 (l sums those). Returns in alpha each row's rescale exp2(m_old -
+// m_new), which O still needs. Scaling is monotone, so the tile's row max
+// is scaled once, and each P is one fma and one ex2.
+__device__ __forceinline__ void softmax_tile(float (&s)[kScores],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int key0,
+                                             int n_tok, float scale_log2,
+                                             int t) {
+  if (key0 + kWgKeys > n_tok) {
+#pragma unroll
+    for (int j = 0; j < kWgKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (key0 + 8 * j + 2 * t + (e & 1) >= n_tok) s[4 * j + e] = kMaskValue;
+      }
+    }
+  }
+  // Four running maxima per row (by key parity and tile half), so the
+  // reduction is four short chains, not one long one.
+  float mx4[2][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    mx4[e / 2][e % 2] = s[e];
+    mx4[e / 2][2 + e % 2] = s[4 * (kWgKeys / 16) + e];
+  }
+#pragma unroll
+  for (int j = 1; j < kWgKeys / 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mx4[e / 2][e % 2] = fmaxf(mx4[e / 2][e % 2], s[4 * j + e]);
+      mx4[e / 2][2 + e % 2] =
+          fmaxf(mx4[e / 2][2 + e % 2], s[4 * (j + kWgKeys / 16) + e]);
+    }
+  }
+  float mx[2], neg_m[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(fmaxf(mx4[r][0], mx4[r][1]), fmaxf(mx4[r][2], mx4[r][3]));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    alpha[r] = exp2_sfu(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+  }
+  // The tile's row sums in two chains per row, then l = l alpha + sum.
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < kWgKeys / 8; ++j) {
+    const float p0 = exp2_sfu(fmaf(s[4 * j + 0], scale_log2, neg_m[0]));
+    const float p1 = exp2_sfu(fmaf(s[4 * j + 1], scale_log2, neg_m[0]));
+    const float p2 = exp2_sfu(fmaf(s[4 * j + 2], scale_log2, neg_m[1]));
+    const float p3 = exp2_sfu(fmaf(s[4 * j + 3], scale_log2, neg_m[1]));
+    sum[0][j % 2] = __fadd_rn(sum[0][j % 2], __fadd_rn(p0, p1));
+    sum[1][j % 2] = __fadd_rn(sum[1][j % 2], __fadd_rn(p2, p3));
+    s[4 * j + 0] = p0;
+    s[4 * j + 1] = p1;
+    s[4 * j + 2] = p2;
+    s[4 * j + 3] = p3;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]),
+                     __fadd_rn(sum[r][0], sum[r][1]));
+  }
+}
+
+// O's two rows of this thread times their alpha.
+template <int R>
+__device__ __forceinline__ void rescale(float (&o)[R],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// A persistent grid, at most one block per SM, walks the (batch*head,
+// 192-query tile) list: block i takes tiles i, i + grid, ... The producer
+// streams each tile's Q (one 64-row tile per consumer, reloaded once every
+// consumer has issued the tile's last scores) and its K and V tiles
+// through one ring that runs on across tiles, K and V each with their own
+// full and empty barrier per stage: a K tile is refilled once its scores
+// have retired and a V tile once its PV has, so the next tile's loads run
+// under this tile's last products and its output store. Each consumer
+// issues key tile j's scores and tile j-1's PV as two groups, waits for
+// the scores only (depth 1), and runs tile j's softmax while PV j-1 runs;
+// O's rescale and bf16(P) follow the wait for PV j-1. The consumers take
+// turns at issuing, round robin from consumer 0 (named barrier kBarTurn +
+// w opens consumer w's turn), so each one's softmax also runs under the
+// others' products.
+template <int D>
+__global__ void __launch_bounds__(kK1Threads, 1)
+flash_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o,
+                      float* __restrict__ lse, int n_tok, int n_heads,
+                      int n_tiles, float scale_log2) {
+  using L = K1Smem<D>;
+  constexpr int S = kK1Stages;
+  constexpr int kBlockRows = kK1Consumers * kWgRows;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+
+  const int n_qtiles = (n_tok + kBlockRows - 1) / kBlockRows;
+  const int n_ktiles = (n_tok + kWgKeys - 1) / kWgKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kK1Consumers * 4);  // one arrival per warp
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kK1Consumers * 4);
+      mbar_init(&v_empty[s], kK1Consumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_producer();
+    if (threadIdx.x == 0) {
+      int it = 0;  // key tiles streamed so far, over all of the block's tiles
+      for (int tile = blockIdx.x, i = 0; tile < n_tiles;
+           tile += gridDim.x, ++i) {
+        const int bh = tile / n_qtiles;
+        const int b = bh / n_heads;
+        const int h = bh % n_heads;
+        const int q0 = (tile % n_qtiles) * kBlockRows;
+        if (i > 0) mbar_wait(q_empty, (i - 1) & 1);
+        mbar_expect_tx(q_full, kK1Consumers * L::kTile);
+        for (int c = 0; c < kK1Consumers; ++c) {
+          tma_load_4d(smem + L::kQ + c * L::kTile, &tm_q, q_full, 0,
+                      q0 + c * kWgRows, h, b);
+        }
+        for (int kt = 0; kt < n_ktiles; ++kt, ++it) {
+          const int s = it % S;
+          const uint32_t parity = ((it / S) + 1) & 1;
+          if (it >= S) mbar_wait(&k_empty[s], parity);
+          mbar_expect_tx(&k_full[s], L::kKv);
+          tma_load_4d(smem + L::kK + s * L::kKv, &tm_k, &k_full[s], 0,
+                      kt * kWgKeys, h, b);
+          if (it >= S) mbar_wait(&v_empty[s], parity);
+          mbar_expect_tx(&v_full[s], L::kKv);
+          tma_load_4d(smem + L::kV + s * L::kKv, &tm_v, &v_full[s], 0,
+                      kt * kWgKeys, h, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_consumer<kK1Regs>();
+    const int w = threadIdx.x / 128 - 1;  // rows q0 + 64 w of each tile
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int t = lane % 4;
+    const uint32_t s_q = smem_u32(smem + L::kQ + w * L::kTile);
+    const uint32_t s_k = smem_u32(smem + L::kK);
+    const uint32_t s_v = smem_u32(smem + L::kV);
+    // A turn waits until the previous consumer has issued its products;
+    // the last consumer opens consumer 0's first turn and not the one
+    // after its own last, so every arrival meets a wait.
+    auto turn_begin = [&] { bar_sync(kBarTurn + w, 2 * 128); };
+    auto turn_end = [&](bool last) {
+      if (!(last && w == kK1Consumers - 1)) {
+        bar_arrive(kBarTurn + (w + 1) % kK1Consumers, 2 * 128);
+      }
+    };
+    if (w == kK1Consumers - 1) bar_arrive(kBarTurn, 2 * 128);
+
+    RowState<D> st;
+    float s[kScores];
+    uint32_t p[kWgKeys / 16][4];
+    float alpha[2];
+    int it = 0;  // key tiles consumed so far, as the producer counts them
+    for (int tile = blockIdx.x, i = 0; tile < n_tiles;
+         tile += gridDim.x, ++i, it += n_ktiles) {
+      const bool last_tile = tile + static_cast<int>(gridDim.x) >= n_tiles;
+      const int bh = tile / n_qtiles;
+      const int row0 = (tile % n_qtiles) * kBlockRows + w * kWgRows;
+      if (row0 >= n_tok) {
+        // No row of this consumer lies before N (the last query tile's
+        // trailing consumers): pass the turns and release Q and each
+        // stage in the others' order, with no products.
+        for (int kt = 0; kt < n_ktiles; ++kt) {
+          const int cur = (it + kt) % S;
+          const uint32_t parity = ((it + kt) / S) & 1;
+          mbar_wait(&k_full[cur], parity);
+          turn_begin();
+          turn_end(false);
+          release(&k_empty[cur], lane);
+          mbar_wait(&v_full[cur], parity);
+          release(&v_empty[cur], lane);
+        }
+        release(q_empty, lane);
+        turn_begin();
+        turn_end(last_tile);
+        continue;
+      }
+      st.reset();
+      mbar_wait(q_full, i & 1);
+      // Key tile 0: its scores alone.
+      mbar_wait(&k_full[it % S], (it / S) & 1);
+      turn_begin();
+      issue_scores<D>(s, s_q, s_k + (it % S) * L::kKv);
+      turn_end(false);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(&k_empty[it % S], lane);
+      softmax_tile(s, st.m, st.l, alpha, 0, n_tok, scale_log2, t);
+      to_a_operand(s, p);
+      for (int kt = 1; kt < n_ktiles; ++kt) {
+        const int j = it + kt;
+        const int cur = j % S;
+        const int prev = (j - 1) % S;
+        mbar_wait(&k_full[cur], (j / S) & 1);
+        mbar_wait(&v_full[prev], ((j - 1) / S) & 1);
+        turn_begin();
+        issue_scores<D>(s, s_q, s_k + cur * L::kKv);
+        issue_pv<D>(st.o, p, s_v + prev * L::kKv);
+        turn_end(false);
+        wgmma_wait<1>();  // the scores; PV j-1 runs on
+        fence_regs(s);
+        release(&k_empty[cur], lane);
+        softmax_tile(s, st.m, st.l, alpha, kt * kWgKeys, n_tok, scale_log2,
+                     t);
+        wgmma_wait<0>();
+        fence_regs(st.o);
+        fence_regs(p);
+        release(&v_empty[prev], lane);
+        rescale(st.o, alpha);
+        to_a_operand(s, p);
+      }
+      release(q_empty, lane);  // every score group of the tile has retired
+      const int last = it + n_ktiles - 1;
+      mbar_wait(&v_full[last % S], (last / S) & 1);
+      turn_begin();
+      issue_pv<D>(st.o, p, s_v + (last % S) * L::kKv);
+      turn_end(last_tile);
+      wgmma_wait<0>();
+      fence_regs(st.o);
+      release(&v_empty[last % S], lane);
+      store_head<D>(st, smem + L::kO + w * L::kTile, &tm_o, lse, bh / n_heads,
+                    bh % n_heads, n_tok, n_heads, row0, w, tid);
+    }
+    if (tid == 0) bulk_wait();
+  }
 }
 
 // ---------------------------------------------------------------- K4
@@ -860,14 +893,16 @@ CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
   return encode_bf16_4d(fn, map, base, dims, strides, box, STile<D>::kTma);
 }
 
-// K4 or K5: the tensor maps of q (64-row boxes), k and v (key-tile boxes)
-// by one head and, for K4, by two, and of the contiguous o, then the
-// launch. Returns minus the
-// driver's error when a map cannot be encoded.
+// The tensor maps of q (64-row boxes), k and v (key-tile boxes) by one
+// head and, for K4, by two, and of the contiguous o, then the launch of
+// the variant's kernel. Returns minus the driver's error when a map cannot
+// be encoded.
 template <int D>
-int launch_wg(Variant variant, const void* q, const void* k, const void* v,
-              void* o, float* lse, int batch, int n_tok, int n_heads, int hb,
-              const Strides& st, float scale_log2, cudaStream_t stream) {
+int launch(Variant variant, const void* q, const void* k, const void* v,
+           void* o, void* lse_out, int batch, int n_tok, int n_heads, int hb,
+           const Strides& st, float scale, cudaStream_t stream) {
+  const float scale_log2 = scale * kLog2e;
+  float* lse = static_cast<float*>(lse_out);
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   const long long o_sn = (long long)n_heads * D;
@@ -891,7 +926,29 @@ int launch_wg(Variant variant, const void* q, const void* k, const void* v,
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
 
   const long long bh = (long long)batch * n_heads;
+  constexpr int kBlockRows = kWgConsumers * kWgRows;
   cudaError_t err;
+  if (variant == kK1) {
+    // A persistent grid: one block per SM, or one per tile if fewer.
+    constexpr int kRows = kK1Consumers * kWgRows;
+    const long long tiles = bh * ((n_tok + kRows - 1) / kRows);
+    if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    int device = 0, sms = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess) {
+      return err;
+    }
+    const long long blocks = tiles < sms ? tiles : sms;
+    auto kernel = flash_attn_fwd_kernel<D>;
+    constexpr int smem = K1Smem<D>::kAlloc;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    note_launch(kernel, blocks, kK1Threads, smem);
+    kernel<<<static_cast<unsigned>(blocks), kK1Threads, smem, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, n_tok, n_heads,
+        static_cast<int>(tiles), scale_log2);
+    return cudaGetLastError();
+  }
   if (pair) {
     if (bh % 2) return cudaErrorInvalidValue;
     const long long blocks = bh / 2 * ((n_tok + kWgRows - 1) / kWgRows);
@@ -906,7 +963,6 @@ int launch_wg(Variant variant, const void* q, const void* k, const void* v,
     return cudaGetLastError();
   }
   if (hb < 1 || bh % hb) return cudaErrorInvalidValue;
-  constexpr int kBlockRows = kWgConsumers * kWgRows;
   const long long blocks = bh / hb * ((n_tok + kBlockRows - 1) / kBlockRows);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   auto kernel = flash_attn_fwd_heads_kernel<D, false>;
@@ -917,27 +973,6 @@ int launch_wg(Variant variant, const void* q, const void* k, const void* v,
   kernel<<<static_cast<unsigned>(blocks), kWgThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, n_tok, n_heads, hb,
       scale_log2);
-  return cudaGetLastError();
-}
-
-template <int D>
-int launch(Variant variant, const void* q, const void* k, const void* v,
-           void* o, void* lse, int batch, int n_tok, int n_heads, int hb,
-           const Strides& strides, float scale, cudaStream_t stream) {
-  const float scale_log2 = scale * kLog2e;
-  float* lp = static_cast<float*>(lse);
-  if (variant != kK1) {
-    return launch_wg<D>(variant, q, k, v, o, lp, batch, n_tok, n_heads, hb,
-                        strides, scale_log2, stream);
-  }
-  const long long n_qtiles = (n_tok + kBlockM - 1) / kBlockM;
-  const long long blocks = (long long)batch * n_heads * n_qtiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  note_launch(flash_attn_fwd_kernel<D>, blocks, kThreads, 0);
-  flash_attn_fwd_kernel<D><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lp, n_tok, n_heads,
-      strides, scale_log2);
   return cudaGetLastError();
 }
 
@@ -966,14 +1001,14 @@ int dispatch(Variant variant, const void* q, const void* k, const void* v,
 
 // q, k, v: (B, N, H, D) bf16 with unit stride on D and element strides
 // (batch, token, head) given; o: contiguous (B, N, H, D) bf16; lse:
-// contiguous (B, H, N) f32. K4 and K5 read q, k and v by TMA (strides
-// multiples of 16 bytes, 16-byte aligned bases) and store o by TMA. Each
+// contiguous (B, H, N) f32. Every kernel reads q, k and v by TMA (strides
+// multiples of 16 bytes, 16-byte aligned bases) and stores o by TMA. Each
 // entry launches on `stream`, allocates nothing, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported D, an odd
 // B*H for K4, or an hb that does not divide B*H), or minus the driver's
 // error when a tensor map cannot be encoded.
 
-// K1: one block per (head, query tile).
+// K1: a persistent grid over (head of the B*H axis, 192-query tile).
 extern "C" int e3d_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n_tok, int n_heads, int head_dim, long long q_sb,

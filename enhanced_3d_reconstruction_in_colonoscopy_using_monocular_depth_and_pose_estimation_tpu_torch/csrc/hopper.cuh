@@ -180,6 +180,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// The same for the bf16 A operands of a register-A wgmma group in flight:
+// kept live in their registers until the wait that retires the group.
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r]) :: "memory");
+  }
+}
+
 // d (64 x 64 f32) += A (64 x 16, shared) * B (16 x 64, shared).
 template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
@@ -358,15 +369,17 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[R],
   }
 }
 
-// Register split of a producer warpgroup and its consumers; each must sit
-// at the top of one branch of a single role split (else ptxas ignores it:
-// note C7508).
+// Register split of a producer warpgroup and its consumers (two consumer
+// warpgroups by default; a kernel with more passes its share); each must
+// sit at the top of one branch of a single role split (else ptxas ignores
+// it: note C7508).
 __device__ __forceinline__ void setmaxnreg_producer() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
 }
 
+template <int kRegs = kConsumerRegs>
 __device__ __forceinline__ void setmaxnreg_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
 }
 
 // ------------------------------------------------------------- host side

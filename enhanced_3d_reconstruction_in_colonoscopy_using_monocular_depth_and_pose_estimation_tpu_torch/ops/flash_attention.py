@@ -9,15 +9,17 @@ hand-written Hopper kernel in ``csrc/flash_attn_fwd.cu`` (bf16, D in
 projection go in without copies) or raises; on CPU tensors it computes
 ``flash_attention_reference``. The kernels mask the ragged edges by index,
 so no caller pads the token axis. Which forward kernel runs follows the
-JAX package's knobs (``forward_schedule``): K1 by default (``mma.sync``,
-one block per head and 64-query tile), K4 (``E3D_FLASH_PAIR``: two heads
-per block, each K and V tile of both brought by one TMA load) or K5
-(``E3D_FLASH_PIPE`` / ``E3D_FLASH_HLOOP``: a block of heads per block,
-walked with or without cross-head overlap). K4 and K5 are warp-specialised
-(a TMA producer warpgroup, two ``wgmma`` consumer warpgroups) and read q,
-k and v by TMA, so they take only views TMA can read (``_tma_ok``) and
-raise on others. All three compute K1's function; K4's and K5's sums run
-in another order, so their O and LSE agree with K1's to within rounding.
+JAX package's knobs (``forward_schedule``): K1 by default (a persistent
+grid over heads and 192-query tiles, each consumer's softmax running
+under its own and the other consumers' products), K4 (``E3D_FLASH_PAIR``:
+two heads per block, each K and V tile of both brought by one TMA load)
+or K5 (``E3D_FLASH_PIPE`` / ``E3D_FLASH_HLOOP``: a block of heads per
+block, walked with or without cross-head overlap). All three are
+warp-specialised (a TMA producer warpgroup and ``wgmma`` consumer
+warpgroups: three in K1, two in K4 and K5) and read q, k and v by TMA, so
+they take only views TMA can read (``_tma_ok``) and raise on others. All three compute the same
+function; their sums run in different orders, so their O and LSE agree
+with one another to within rounding.
 
 The backward has two schedules, as in the JAX package: K2
 (``flash_attention_bwd_fused``, one pass over key blocks, dQ summed across
@@ -215,7 +217,8 @@ def _tma_ok(x: torch.Tensor) -> bool:
 
 def _require_tma(what: str, **views: torch.Tensor) -> None:
     """Raise ValueError, naming the strides, for a view TMA cannot read:
-    K4 and K5 load q, k and v only by TMA and take no other path."""
+    the forward kernels and the backward load q, k and v only by TMA and
+    take no other path."""
     for name, x in views.items():
         if not _tma_ok(x):
             raise ValueError(f"{what}: {name} (strides {tuple(x.stride())}, "
@@ -323,8 +326,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     CPU tensors take the plain version; CUDA tensors launch the kernel
     that ``forward_schedule`` names: K1 (adding one to
     ``flash_attention.launches``), or K4 or K5 through
-    ``flash_attention_pair`` and ``flash_attention_heads``. Not
-    differentiable, so it raises, on every device alike, when autograd
+    ``flash_attention_pair`` and ``flash_attention_heads``. Each reads q,
+    k and v by TMA, so a view TMA cannot read raises before any launch.
+    Not differentiable, so it raises, on every device alike, when autograd
     would record it: train through ``flash_attention_qkv``."""
     _refuse_autograd(q, k, v)
     if _on_cpu(q, k, v):
@@ -334,6 +338,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return flash_attention_pair(q, k, v)
     if kernel != "K1":
         return flash_attention_heads(q, k, v, pipe=kernel == "K5 pipe")
+    _require_tma("flash_attention", q=q, k=k, v=v)
     out = _launch_fwd(_K1_ENTRY, q, k, v)
     flash_attention.launches += 1
     return out

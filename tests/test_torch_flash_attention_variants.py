@@ -152,13 +152,13 @@ def test_variants_refuse_meta_tensors_and_autograd():
         tfa.flash_attention_pair(x, x, x)
 
 
-@pytest.mark.parametrize("kind", ["pair", "pipe", "hloop"])
+@pytest.mark.parametrize("kind", ["k1", "pair", "pipe", "hloop"])
 @pytest.mark.parametrize("view", ["zero stride", "misaligned stride"])
 def test_variants_refuse_views_tma_cannot_read(view, kind, monkeypatch):
-    """K4 and K5 load q, k and v only by TMA, so off the CPU a view with a
-    zero stride or a stride that is not a multiple of 16 bytes raises a
-    ValueError naming its strides, before any build (meta tensors stand in
-    for the card; the packed projection's views pass)."""
+    """K1, K4 and K5 load q, k and v only by TMA, so off the CPU a view
+    with a zero stride or a stride that is not a multiple of 16 bytes
+    raises a ValueError naming its strides, before any build (meta tensors
+    stand in for the card; the packed projection's views pass)."""
     def no_build(name):
         raise AssertionError(f"built {name} for a view the kernel refuses")
 
@@ -171,16 +171,37 @@ def test_variants_refuse_views_tma_cannot_read(view, kind, monkeypatch):
     else:  # rows of 68 elements: a head stride of 136 bytes
         bad = torch.empty(2, 16, 2, 68, dtype=torch.bfloat16,
                           device="meta")[..., :64]
-    call = {"pair": tfa.flash_attention_pair,
+    for flag in ("_PAIR", "_PIPE", "_HLOOP"):
+        monkeypatch.setattr(tfa, flag, False)
+    call = {"k1": tfa.flash_attention,
+            "pair": tfa.flash_attention_pair,
             "pipe": lambda *x: tfa.flash_attention_heads(*x, pipe=True),
             "hloop": lambda *x: tfa.flash_attention_heads(*x, pipe=False)}
-    counts = (tfa.flash_attention_pair.launches,
+    counts = (tfa.flash_attention.launches,
+              tfa.flash_attention_pair.launches,
               tfa.flash_attention_heads.launches)
     with pytest.raises(ValueError,
                        match=r"k \(strides .*\) is not a view TMA can read"):
         call[kind](q, bad, v)
-    assert (tfa.flash_attention_pair.launches,
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_pair.launches,
             tfa.flash_attention_heads.launches) == counts
+
+
+def test_k1_takes_any_view_on_the_cpu():
+    """On the CPU the default forward takes the plain version whatever the
+    view's strides: a broadcast k (a zero stride, which the card's TMA
+    refuses) gives the plain result of its contiguous copy, and nothing
+    counts as a launch."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(24, 32, seed=4))
+    bad = k[:, :1].expand_as(k)
+    assert not tfa._tma_ok(bad)
+    before = tfa.flash_attention.launches
+    o, lse = tfa.flash_attention(q, bad, v)
+    ro, rlse = tfa.flash_attention_reference(q, bad.contiguous(), v)
+    torch.testing.assert_close(o, ro)
+    torch.testing.assert_close(lse, rlse)
+    assert tfa.flash_attention.launches == before
 
 
 _PROBE = """

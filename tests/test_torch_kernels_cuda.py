@@ -382,9 +382,10 @@ def test_vitt_train_step_on_kernels_matches_plain_attention(card, fused):
     assert moved == p_moved and len(moved) >= len(params) - 1
 
 
-# ------------------------------------------- K4, K5: forward schedules
+# --------------------------------------- K1, K4, K5: forward schedules
 
 VARIANTS = {
+    "K1": lambda q, k, v: flash_attention(q, k, v),  # the knobs are off
     "K4": lambda q, k, v: fa.flash_attention_pair(q, k, v),
     "K5_pipe": lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=True),
     "K5_hloop": lambda q, k, v: fa.flash_attention_heads(q, k, v,
@@ -393,8 +394,8 @@ VARIANTS = {
 
 
 def _variant_counter(name):
-    return fa.flash_attention_pair if name == "K4" else \
-        fa.flash_attention_heads
+    return {"K1": flash_attention, "K4": fa.flash_attention_pair}.get(
+        name, fa.flash_attention_heads)
 
 
 @pytest.mark.cuda
@@ -402,14 +403,14 @@ def _variant_counter(name):
 @pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32),
                                    (3, 50, 4, 64), (1, 37, 2, 32)])
 def test_forward_variants_match_plain_and_k1(shape, variant, card):
-    """K4 and K5 (both schedules) against the plain version with K1's
-    tolerances, and against K1: the same function, but wgmma sums the
-    products in another order than K1's mma.sync, over other key tiles, so
-    not the same bits. Both round O to bf16 from f32 sums: O within
-    max|O_K1| / 64 (two to four bf16 steps of the largest output), LSE
-    within 1e-3. The shapes cover vitl's, D 32, a ragged N shorter than a
-    tile, and an odd H whose head pairs straddle batch rows
-    (2, 130, 3, 32)."""
+    """K1, K4 and K5 (both schedules) against the plain version, and K4
+    and K5 against K1: the same function, but K1 sums in another order
+    (its softmax scales each score by one fma and takes ex2.approx; K4's
+    tiles are 64 queries), so not the same bits. All round O to bf16 from
+    f32 sums: O within max|O_K1| / 64 (two to four bf16 steps of the
+    largest output), LSE within 1e-3. The shapes cover vitl's, D 32, a
+    ragged N shorter than a tile, and an odd H whose head pairs straddle
+    batch rows (2, 130, 3, 32)."""
     q, k, v = _packed_qkv(*shape, seed=sum(shape) + 7, card=card)
     counter = _variant_counter(variant)
     before = counter.launches
@@ -430,8 +431,8 @@ def test_forward_variants_match_plain_and_k1(shape, variant, card):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32)])
 def test_forward_variants_repeat(shape, variant, card):
-    """K4 and K5 give the same bits from call to call: every sum has one
-    order (no atomics)."""
+    """K1, K4 and K5 give the same bits from call to call: every sum has
+    one order (no atomics)."""
     q, k, v = _packed_qkv(*shape, seed=sum(shape) + 8, card=card)
     o0, lse0 = VARIANTS[variant](q, k, v)
     o1, lse1 = VARIANTS[variant](q, k, v)
@@ -441,7 +442,7 @@ def test_forward_variants_repeat(shape, variant, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_forward_variants_refuse_views_tma_cannot_read(variant, card):
-    """K4 and K5 read q, k and v only by TMA: a broadcast k (a zero
+    """K1, K4 and K5 read q, k and v only by TMA: a broadcast k (a zero
     stride) raises, naming its strides, and nothing launches, neither the
     kernel nor K1."""
     q, k, v = _packed_qkv(2, 70, 4, 64, seed=4, card=card)
@@ -450,6 +451,35 @@ def test_forward_variants_refuse_views_tma_cannot_read(variant, card):
         VARIANTS[variant](q, k[:, :1].expand_as(k), v)
     assert (_variant_counter(variant).launches,
             flash_attention.launches) == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["K2", "K3"])
+@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32),
+                                   (1, 37, 2, 64)])
+def test_default_forward_feeds_both_backwards(shape, fused, card,
+                                              monkeypatch):
+    """FlashAttentionQKV on K1 and K2 (or K3) against the plain backward
+    of the plain forward: K1's LSE drives either backward to the plain
+    gradient, within the backward's tolerance."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    qkv = torch.randn((shape[0], shape[1], 3, *shape[2:]), generator=gen,
+                      device=card, dtype=torch.bfloat16)
+    do = torch.randn(shape, generator=gen, device=card, dtype=torch.bfloat16)
+    monkeypatch.setattr(fa, "_BWD_FUSED", fused)
+    counter = (fa.flash_attention_bwd_fused if fused
+               else fa.flash_attention_bwd_split)
+    before = (flash_attention.launches, counter.launches)
+    x = qkv.clone().requires_grad_(True)
+    fa.flash_attention_qkv(x).backward(do)
+    assert (flash_attention.launches, counter.launches) == \
+        (before[0] + 1, before[1] + 1)
+    q, k, v = qkv.unbind(2)
+    ro, rlse = flash_attention_reference(q, k, v)
+    ref = fa.flash_attention_bwd_reference(q, k, v, ro, rlse, do)
+    for name, g, w in zip("qkv", x.grad.unbind(2), ref):
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= BWD_TOL, (name, _rel_err(g, w))
 
 
 @pytest.mark.cuda
