@@ -6,11 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``csrc/`` and the host media
-codecs from ``csrc/host/`` (one compiler per source, in parallel), holds
-each kernel against its plain PyTorch version on the card (K1, K2, K3;
-K4 and K5 also against K1, and their LSE through the default backward;
-K6 at the decoder's five resizes), and drives the port's three paths at
-vitl width with seeded random weights:
+and image codecs from ``csrc/host/`` (one compiler per source, in
+parallel), holds each kernel against its plain PyTorch version on the
+card (K1, K2, K3; K4 and K5 also against K1, and their LSE through the
+default backward; K6 at the decoder's five resizes), and drives the
+port's paths at vitl width with seeded random weights:
 
 - serving: vitl DAv2 depth at 518 px, batch 8, through
   ``DepthServingEngine``; checks that the served batches went through K1,
@@ -31,7 +31,21 @@ vitl width with seeded random weights:
   measured faster) and once more, for one step, on the other; checks
   launch counts, finite losses, that every parameter moved and got a
   gradient, and the kernels' gradient against the plain attention's;
-  prints frames/s trained and a profile of one optimizer step.
+  prints frames/s trained and a profile of one optimizer step;
+- the file-based entry points, at vitl 518 px on SimCol-shaped trees of
+  475x475 frames written by the port's own writers: the image codecs
+  round-trip bit for bit (8-bit RGB and 16-bit gray PNG, 16-bit TIFF);
+  ``cli.infer.main`` on 32 frames at batch 8 (K1 24 per batch, every
+  ``.npy`` map against the plain f32 model by the video rule, a second
+  run skips all 32); ``cli.serve.main --once`` on the same frames and a
+  truncated PNG (left unread, the rest served and held to the same rule,
+  the p50/p95/p99 line printed); ``cli.train_depth.main`` (``model=large``,
+  16-mixed, gradient checkpointing, batch 8, accum 2, two steps: K1 48
+  and the default backward 24 per microbatch, K1 24 per validation
+  batch; a finite train_loss, the snapshot and a checkpoint); and
+  ``cli.test_depth.main`` on that checkpoint directory (K1 24 per batch;
+  finite metrics; abs_rel and rmse within 2x the plain bf16 run's
+  distance from the plain f32 run, plus 1e-3 relative).
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -65,7 +79,8 @@ BATCH = 8
 N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
 LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize",
-             "host/jpegcodec", "host/container"]
+             "host/jpegcodec", "host/container", "host/pngdec",
+             "host/tiffdec"]
 JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
            "depth_and_pose_estimation_tpu")
 JAX_FLASH = f"{JAX_PKG}/ops/flash_attention.py"
@@ -1304,6 +1319,399 @@ def phase_train_profile(task, state, data) -> None:
                   f"({t / iters / 1e3:.3f} ms per optimizer step)")
 
 
+# ------------------------------------------------------------ file CLIs
+
+# The file-based entry points' fixtures: SimCol-shaped trees of 475x475
+# frames written by the port's own writers. infer and serve: 32 frames in
+# 2 procedures (4 batches of 8). train_depth and test_depth: 3 procedures
+# of 32 (the first trains: 4 microbatches, 2 optimizer steps at accum 2;
+# the other two validate and test: 8 batches of 8).
+CLI_FRAMES = 4 * BATCH
+TRAIN_CLI_FRAMES = 4 * BATCH
+TRAIN_CLI_ACCUM = 2
+
+
+def _captured(fn, *args):
+    """``fn(*args)`` with its standard output captured and echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip() and not line.startswith("[metrics]"):
+            print(f"  | {line}")
+    return result, text
+
+
+def _want(**launches) -> dict[str, int]:
+    return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5",
+                                            "K6")}
+
+
+def phase_codecs(smi: str) -> None:
+    """The port's image codecs at SimCol's frame size: its writers
+    (``media.imageio``: 8-bit RGB and 16-bit gray PNG, 16-bit TIFF)
+    through its readers (``data.native``), bit for bit, with the host's
+    ms per frame."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    imageio = importlib.import_module(f"{PKG}.media.imageio")
+    native = importlib.import_module(f"{PKG}.data.native")
+    rng = np.random.default_rng(11)
+    n = 16
+    cases = {
+        "PNG 8-bit RGB": (rng.integers(0, 256, (n, *FRAME_HW, 3),
+                                       dtype=np.uint8), "png"),
+        "PNG 16-bit gray": (rng.integers(0, 65536, (n, *FRAME_HW),
+                                         dtype=np.uint16), "png"),
+        "TIFF 16-bit gray": (rng.integers(0, 65536, (n, *FRAME_HW),
+                                          dtype=np.uint16), "tiff"),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (imgs, ext) in cases.items():
+            paths = [os.path.join(tmp, f"{ext}{imgs.ndim}_{i}.{ext}")
+                     for i in range(n)]
+            write = imageio.write_png if ext == "png" else \
+                imageio.write_tiff16
+            read = (lambda p: native.decode_png_batch([p])[0]) \
+                if ext == "png" else native.decode_tiff
+            t0 = time.perf_counter()
+            for path, img in zip(paths, imgs):
+                write(path, img)
+            w_ms = (time.perf_counter() - t0) / n * 1e3
+            t0 = time.perf_counter()
+            back = [read(p) for p in paths]
+            r_ms = (time.perf_counter() - t0) / n * 1e3
+            size = sum(os.path.getsize(p) for p in paths) / n / 2 ** 10
+            equal = all(np.array_equal(a, b) for a, b in zip(back, imgs))
+            print(f"codecs [{label}, {FRAME_HW}, random pixels, {size:.0f} "
+                  f"KiB a file]: write {w_ms:.2f} ms/frame, read "
+                  f"{r_ms:.2f} ms/frame (host, {smi}); round trip "
+                  f"{'bit-equal' if equal else 'DIFFERS'}")
+            if not equal:
+                raise AssertionError(f"codecs [{label}]: round trip differs")
+
+
+def _plain_maps(model, bgr: list) -> tuple:
+    """Depth maps of ``bgr`` frames from the plain bf16 model and the plain
+    f32 model (cuDNN's TF32 off), the yardsticks of the CLI phases."""
+    import numpy as np
+    import torch
+
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
+
+    def every_frame():
+        return np.concatenate([np.stack(runner(bgr[i:i + BATCH]))
+                               for i in range(0, len(bgr), BATCH)])
+
+    attn.set_force_plain(True)
+    try:
+        plain = every_frame()
+        model.pretrained.dtype = torch.float32
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            f32 = every_frame()
+    finally:
+        model.pretrained.dtype = torch.bfloat16
+        attn.set_force_plain(False)
+    return plain, f32
+
+
+def _check_maps_relative(label: str, maps, plain, f32) -> None:
+    """The video phase's rule: the entry point's maps no further from the
+    plain f32 model than 1.5x the plain bf16 model's distance (mean), and
+    from the plain bf16 model at most 2x its largest distance from f32."""
+    import numpy as np
+
+    _check_maps(list(maps))
+    d_kf, d_kp, d_pf = (np.abs(a - b) for a, b in
+                        ((maps, f32), (maps, plain), (plain, f32)))
+    print(f"  {label}: {len(maps)} depth maps vs plain f32: mean "
+          f"{d_kf.mean():.5f} m, max {d_kf.max():.4f} m (plain bf16 vs f32: "
+          f"mean {d_pf.mean():.5f}, max {d_pf.max():.4f}); vs plain bf16 "
+          f"max {d_kp.max():.4f}")
+    if not (d_kf.mean() <= 1.5 * d_pf.mean()
+            and d_kp.max() <= 2.0 * d_pf.max()):
+        raise AssertionError(f"{label}: depth further from f32 than the "
+                             "plain bf16 model allows")
+
+
+def phase_infer_cli(model, tmp: str, smi: str) -> tuple:
+    """``cli.infer.main`` at vitl on a SimCol tree of 32 frames (batch 8,
+    ``--save-numpy``): K1's launches, every map against the plain f32
+    model, and skip-existing on a second run. Returns the launches, the
+    frames' paths and BGR arrays, and the yardstick maps."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    synthetic = importlib.import_module(f"{PKG}.data.synthetic")
+    dio = importlib.import_module(f"{PKG}.data.io")
+    infer = importlib.import_module(f"{PKG}.cli.infer")
+
+    root = synthetic.make_simcol_fixture(
+        os.path.join(tmp, "infer"), n_procedures=2,
+        frames_per_proc=CLI_FRAMES // 2, hw=FRAME_HW[0], seed=21)
+    paths = sorted(glob.glob(os.path.join(
+        root, "SyntheticColon_I", "Frames_S*", "FrameBuffer_*.png")))
+    bgr = [np.ascontiguousarray(dio.decode_rgb(p)[..., ::-1])
+           for p in paths]
+    args = ["-i", root, "-d", "simcol", "--encoder", "vitl",
+            "--batch-size", str(BATCH), "--save-numpy"]
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    result, _ = _captured(infer.main, args)
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    batches = -(-CLI_FRAMES // BATCH)
+    want = _want(K1=BLOCKS * batches)
+    host = 1.0 - result["model_seconds"] / result["seconds"]
+    print(f"infer CLI: {result['processed']} frames of {FRAME_HW} in "
+          f"{result['seconds']:.2f} s through main() (model init, decode, "
+          f"{batches} batches, render, PNG and .npy writes): "
+          f"{CLI_FRAMES / result['seconds']:.2f} frames/s; in the model's "
+          f"entry points {result['model_seconds']:.2f} s, host share "
+          f"{host:.3f}; {smi}; launches {counts} (want {want})")
+    if counts != want or result["processed"] != CLI_FRAMES:
+        raise AssertionError(f"infer CLI: launches {counts}, want {want}; "
+                             f"{result}")
+    maps = np.stack([np.load(os.path.join(
+        root, "SyntheticColon_I", f"{os.path.basename(os.path.dirname(p))}"
+        "_OP", os.path.basename(p)[:-4] + ".npy")) for p in paths])
+    plain, f32 = _plain_maps(model, bgr)
+    _check_maps_relative("infer CLI", maps, plain, f32)
+
+    # Skip-existing: a second run skips all 32. (The SimCol glob,
+    # Frames_*, also takes the first run's Frames_*_OP renderings as new
+    # frames, as the reference's run.py does.)
+    again, text = _captured(infer.main, args)
+    print(f"infer CLI, second run: skipped {again['skipped']}, processed "
+          f"{again['processed']} (the first run's renderings)")
+    if f"Skipped existing: {CLI_FRAMES}" not in text:
+        raise AssertionError(f"infer CLI second run: {again}")
+    return counts, paths, bgr, plain, f32
+
+
+def phase_serve_cli(paths, plain, f32, tmp: str, smi: str) -> dict:
+    """``cli.serve.main --once`` over a flat folder of the same 32 frames
+    plus one truncated PNG: the truncated file is left unread (parked
+    while it stays unchanged), the others are served through K1 and held
+    against the plain f32 model."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    serve = importlib.import_module(f"{PKG}.cli.serve")
+
+    indir = os.path.join(tmp, "incoming")
+    outdir = os.path.join(tmp, "served")
+    os.makedirs(indir)
+    names = []
+    for p in paths:
+        name = f"{os.path.basename(os.path.dirname(p))}_{os.path.basename(p)}"
+        shutil.copy(p, os.path.join(indir, name))
+        names.append(name[:-4])
+    cut = os.path.join(indir, "zz_truncated.png")
+    with open(paths[0], "rb") as f:
+        data = f.read()
+    with open(cut, "wb") as f:
+        f.write(data[:len(data) // 2])
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    t0 = time.perf_counter()
+    result, text = _captured(serve.main, [
+        "-i", indir, "-o", outdir, "--encoder", "vitl", "--batch-size",
+        str(BATCH), "--once", "--save-numpy"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _video_counts(fa, rz)
+    stats = result["stats"]
+    want = _want(K1=BLOCKS * stats["batches"])
+    print(f"serve CLI: {result['served']} frames served in "
+          f"{stats['batches']} batches (fill {stats['mean_batch_fill']:.2f}), "
+          f"{seconds:.2f} s through main() (model init, decode, serve, "
+          f"render, writes): {result['served'] / seconds:.2f} frames/s; "
+          f"latency p50/p95/p99 {stats['latency_p50_ms']:.1f}/"
+          f"{stats['latency_p95_ms']:.1f}/{stats['latency_p99_ms']:.1f} ms; "
+          f"{smi}; unread {sorted(result['unread'])}; launches {counts} "
+          f"(want {want})")
+    if counts != want or result["served"] != CLI_FRAMES \
+            or list(result["unread"]) != [cut] \
+            or "latency p50/p95/p99 = " not in text or stats["failed"]:
+        raise AssertionError(f"serve CLI: launches {counts}, want {want}; "
+                             f"{result}")
+    maps = np.stack([np.load(os.path.join(outdir, f"{n}.npy"))
+                     for n in names])
+    _check_maps_relative("serve CLI", maps, plain, f32)
+    return counts
+
+
+def _cli_data(root: str) -> list[str]:
+    return [f"dataset.data_dir={root}",
+            f"dataset.train_list={root}/train.txt",
+            f"dataset.val_list={root}/val.txt",
+            f"dataset.test_list={root}/test.txt",
+            "model=large", "dataset.size=518",
+            f"dataset.batch_size={BATCH}"]
+
+
+def phase_train_cli(tmp: str, smi: str) -> tuple:
+    """``cli.train_depth.main`` at vitl 518 px on a SimCol tree (3
+    procedures of 32 frames; the config's 16-mixed and gradient
+    checkpointing; microbatch 8, accum 2, two optimizer steps): the run
+    dir, its snapshot, a finite train_loss, a checkpoint, and the
+    launches (K1 48 and the default backward 24 per microbatch, K1 24 per
+    validation batch). Returns the launches, the checkpoint dir and the
+    data overrides."""
+    import math
+    import os
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    synthetic = importlib.import_module(f"{PKG}.data.synthetic")
+    train_depth = importlib.import_module(f"{PKG}.cli.train_depth")
+
+    root = synthetic.make_simcol_fixture(
+        os.path.join(tmp, "train"), n_procedures=3,
+        frames_per_proc=TRAIN_CLI_FRAMES, hw=FRAME_HW[0], seed=31)
+    data = _cli_data(root)
+    overrides = data + [f"trainer.accumulate_grad_batches={TRAIN_CLI_ACCUM}",
+                        "++trainer.max_steps=2"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _video_counts(fa, rz, zero=True)
+        t0 = time.perf_counter()
+        out, _ = _captured(train_depth.main, overrides)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _video_counts(fa, rz)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run_dir = os.path.join(tmp, out["run_dir"])
+        ckpt_dir = os.path.join(tmp, out["ckpt_dir"])
+        records = _read_log(run_dir)
+    finally:
+        os.chdir(cwd)
+    train = [r for r in records if "train_loss" in r]
+    val = [r for r in records if "val_loss" in r]
+    perf = next(r for r in records if "perf/step_time_mean_s" in r)
+    microbatches = TRAIN_CLI_FRAMES // BATCH
+    val_batches = len(val) * -(-2 * TRAIN_CLI_FRAMES // BATCH)
+    bwd = _bwd_name(fa._BWD_FUSED)
+    want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
+                 **{bwd: BLOCKS * microbatches})
+    saved = sorted(os.listdir(ckpt_dir))
+    snapshot = os.path.join(run_dir, ".hydra", "config.yaml")
+    print(f"train_depth CLI, vitl 518 px, 16-mixed, gradient "
+          f"checkpointing, {microbatches} microbatches of {BATCH}, accum "
+          f"{TRAIN_CLI_ACCUM}: {len(train)} optimizer steps, "
+          f"{len(val)} validations of {val_batches // max(len(val), 1)} "
+          f"batches, {seconds:.2f} s through main() (fixture excluded); "
+          f"per optimizer step (StepTimer) {perf['perf/step_time_mean_s'] * 1e3:.1f}"
+          f" ms; peak device memory {peak:.2f} GiB; {smi}; losses "
+          f"{[round(r['train_loss'], 5) for r in train]}; checkpoint "
+          f"entries {saved}; launches {counts} (want {want})")
+    if counts != want or len(train) != 2 \
+            or not all(math.isfinite(r["train_loss"]) for r in train) \
+            or not os.path.exists(snapshot) \
+            or not any(os.path.exists(os.path.join(ckpt_dir, s, "state.pt"))
+                       for s in saved):
+        raise AssertionError(f"train_depth CLI: launches {counts}, want "
+                             f"{want}; records {records}; checkpoint {saved}")
+    return counts, ckpt_dir, data
+
+
+def phase_test_cli(ckpt_dir: str, data: list, tmp: str, smi: str) -> dict:
+    """``cli.test_depth.main`` on the train_depth phase's checkpoint dir
+    (2 test procedures, 8 batches of 8): finite per-procedure and overall
+    metrics, K1's launches, and abs_rel and rmse against the same
+    checkpoint on the plain attention in f32."""
+    import math
+    import os
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    test_depth = importlib.import_module(f"{PKG}.cli.test_depth")
+
+    os.environ["CHECKPOINT_PATH"] = ckpt_dir
+
+    def run(name: str, *extra: str) -> dict:
+        os.environ["E3D_RESULTS_DIR"] = os.path.join(tmp, name)
+        return _captured(test_depth.main, data + list(extra))[0]
+
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    t0 = time.perf_counter()
+    kernel = run("results_k1")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _video_counts(fa, rz)
+    batches = -(-2 * TRAIN_CLI_FRAMES // BATCH)
+    want = _want(K1=BLOCKS * batches)
+    attn.set_force_plain(True)
+    try:
+        plain = run("results_plain_bf16")
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            f32 = run("results_plain_f32", "trainer.precision=32-true")
+    finally:
+        attn.set_force_plain(False)
+    values = [s["mean"] for m in kernel["procedure_metrics"].values()
+              for s in m.values()]
+    values += [s["mean"] for s in kernel["overall_metrics"].values()]
+    print(f"test_depth CLI on {ckpt_dir}: {2 * TRAIN_CLI_FRAMES} frames in "
+          f"{batches} batches, {seconds:.2f} s through main(); {smi}; "
+          f"procedures {sorted(kernel['procedure_metrics'])}; launches "
+          f"{counts} (want {want})")
+    # The rule: each of abs_rel and rmse (overall, across procedures) on
+    # K1 in bf16 within 2x the plain bf16 run's distance from the plain
+    # f32 run, plus 1e-3 of the f32 value (a floor for a plain bf16 run
+    # that lands on f32 by chance).
+    bad = []
+    for key in ("abs_rel", "rmse", "d1", "l1"):
+        k, p, f = (r["overall_metrics"][key]["mean"]
+                   for r in (kernel, plain, f32))
+        limit = 2.0 * abs(p - f) + 1e-3 * abs(f)
+        print(f"  overall {key}: K1 bf16 {k:.6f}, plain bf16 {p:.6f}, plain "
+              f"f32 {f:.6f}; |K1 - f32| {abs(k - f):.2e}"
+              + (f" (limit {limit:.2e})" if key in ("abs_rel", "rmse")
+                 else ""))
+        if key in ("abs_rel", "rmse") and abs(k - f) > limit:
+            bad.append(key)
+    if counts != want or not all(math.isfinite(v) for v in values) \
+            or len(kernel["procedure_metrics"]) != 2 or bad:
+        raise AssertionError(f"test_depth CLI: launches {counts}, want "
+                             f"{want}; outside the rule: {bad}; {kernel}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1354,6 +1762,29 @@ def main() -> int:
     task, state, train = phase_train(data, smi)
     other = phase_train_other(data)
     phase_train_profile(task, state, data)
+    del task, state, data
+    torch.cuda.empty_cache()
+
+    # The file-based entry points, each driven as a user would call it.
+    import os
+    import tempfile
+
+    phase_codecs(smi)
+    os.environ["E3D_CONFIG_ROOT"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "configs")
+    with tempfile.TemporaryDirectory() as tmp:
+        model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                     seed=0)
+        infer, paths, _, plain, f32 = phase_infer_cli(model, tmp, smi)
+        del model
+        served = phase_serve_cli(paths, plain, f32, tmp, smi)
+        torch.cuda.empty_cache()
+        train_cli, ckpt_dir, cli_data = phase_train_cli(tmp, smi)
+        torch.cuda.empty_cache()
+        test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+    # "serve_cli": the serve CLI ("serve" is DepthServingEngine's phase).
+    cli_paths = {"infer": infer, "serve_cli": served,
+                 "train_cli": train_cli, "test_cli": test_cli}
 
     k1["launches"] = serve_k1
     k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"],
@@ -1383,6 +1814,10 @@ def main() -> int:
                     "library_ms", "max_diff_k1")}
     k6["launches"] = pair["K6"]
     k6["launches_by_path"] = {"video": pair["K6"]}
+    for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
+                      ("K5", k5), ("K6", k6)):
+        rec["launches_by_path"].update(
+            {path: counts[name] for path, counts in cli_paths.items()})
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

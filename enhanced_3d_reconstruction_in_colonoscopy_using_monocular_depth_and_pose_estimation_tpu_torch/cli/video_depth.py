@@ -15,8 +15,8 @@ Usage:
         [--max-frames N] [--grayscale] [--quality 90] [--device cuda]
 
 ``--token-merge``, ``--int8`` and ``--int8-calib`` are parsed as in the
-JAX package, but the port has no token merging or int8 yet (ROADMAP item
-11): any value but the default exits with an error.
+JAX package, but the port has no token merging or int8 yet (ROADMAP,
+"Speed dials"): any value but the default exits with an error.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import argparse
 import os
 
 import numpy as np
+
+from . import add_speed_dials, refuse_speed_dials
 
 
 def _frames(path: str, every_n: int, max_frames: int | None):
@@ -72,21 +74,11 @@ def main(argv=None, on_depth=None) -> dict:
                    help="override output fps (default: input fps / every_n)")
     p.add_argument("--device", default="cuda",
                    help="where the model runs: cuda (default) or cpu")
-    p.add_argument("--token-merge", type=float, default=0.0,
-                   help="ToMe token-merge fraction (not in the port yet)")
-    p.add_argument("--int8", action="store_true",
-                   help="dynamic-int8 encoder matmuls (not in the port yet)")
-    p.add_argument("--int8-calib", type=int, default=0, metavar="K",
-                   help="static int8 scales from K batches (not in the "
-                        "port yet)")
+    add_speed_dials(p)
     args = p.parse_args(argv)
     if args.every_n < 1:
         p.error("--every-n must be >= 1")
-    if args.int8_calib and not args.int8:
-        p.error("--int8-calib requires --int8")
-    if args.token_merge or args.int8 or args.int8_calib:
-        p.error("--token-merge, --int8 and --int8-calib are not ported yet "
-                "(ROADMAP item 11, speed dials)")
+    refuse_speed_dials(p, args)
 
     model = load_or_init_depth_model(args.encoder, args.max_depth,
                                      args.load_from, device=args.device)

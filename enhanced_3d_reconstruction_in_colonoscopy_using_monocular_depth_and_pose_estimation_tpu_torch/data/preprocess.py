@@ -1,4 +1,11 @@
-"""Device-side batch preparation for depth training and evaluation.
+"""Batch preparation for depth training and evaluation: the host resize
+helpers and the device-side ``DevicePreprocessor``.
+
+``host_resize_image`` and ``host_resize_depth`` turn one decoded frame
+into [0, 1] f32 at (size, size) with numpy matmuls in the loader's
+threads (batches that mix native resolutions, as combined SimCol + C3VD
+does), on the same bicubic antialias weights as the device resize
+(``ops.resize._antialias_matrix``).
 
 ``DevicePreprocessor`` takes a loader batch (raw uint8 images and uint16
 depth, or [0, 1] floats already resized on the host), uploads it, and on
@@ -9,8 +16,6 @@ augmentation touches the image only: hflip and affine never move the
 depth, a property of the reference that is kept, not fixed. Combined
 SimCol + C3VD batches (a ``source`` field) get a per-sample ``max_depth``
 and C3VD depths scaled by 0.1 (mm to cm).
-
-The host resize helpers of the JAX module wait for the data slice.
 """
 
 from __future__ import annotations
@@ -22,7 +27,31 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops import augment as aug
-from ..ops.resize import resize_antialias
+from ..ops.resize import _antialias_matrix, resize_antialias
+
+
+def _host_resize(x: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """(H, W[, C]) float32 resize via the shared bicubic-antialias
+    weights."""
+    mat_h = _antialias_matrix(x.shape[0], out_hw[0], "bicubic")
+    mat_w = _antialias_matrix(x.shape[1], out_hw[1], "bicubic")
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[..., None]
+    y = np.einsum("oh,hwc->owc", mat_h, x.astype(np.float32), optimize=True)
+    y = np.einsum("ow,hwc->hoc", mat_w, y, optimize=True)
+    return y[..., 0] if squeeze else y
+
+
+def host_resize_image(img_uint8: np.ndarray, size: int) -> np.ndarray:
+    """uint8 RGB -> [0,1] f32 at (size, size)."""
+    return _host_resize(img_uint8.astype(np.float32) / 255.0, (size, size))
+
+
+def host_resize_depth(depth_uint16: np.ndarray, size: int) -> np.ndarray:
+    """uint16 depth -> [0,1] f32 at (size, size)."""
+    return _host_resize(depth_uint16.astype(np.float32) / 65535.0,
+                        (size, size))
 
 
 class DevicePreprocessor:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.dtypes import POLICY_BF16
 from .depth_anything import MODEL_CONFIGS, DepthAnythingV2, build_depth_model
 from .dinov2 import VIT_ARCHS
 
@@ -35,19 +36,29 @@ UNUSED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",)
 def load_or_init_depth_model(encoder: str, max_depth: float,
                              load_from: str | None,
                              device: str | torch.device = "cuda",
-                             seed: int = 0) -> DepthAnythingV2:
+                             seed: int = 0,
+                             dtype: torch.dtype = POLICY_BF16.compute_dtype
+                             ) -> DepthAnythingV2:
     """The ``encoder`` depth model on ``device`` (the card unless the
-    caller asks for the CPU), in eval mode, as the JAX package's
-    ``load_or_init_depth_params``: a directory is the port's own training
-    output (``core.checkpoint``: the best save by val_loss, else the
-    newest), a file is a DAv2 ``.pth`` or Lightning ``.ckpt``, and neither
-    gives the seeded random init."""
+    caller asks for the CPU), computing in ``dtype``, in eval mode, as the
+    JAX package's ``load_or_init_depth_params``: a directory is the port's
+    own training output (``core.checkpoint``: the best save by val_loss,
+    else the newest), a file is a DAv2 ``.pth`` or Lightning ``.ckpt``,
+    and neither gives the seeded random init. A directory of the JAX
+    package's Orbax checkpoints raises ``ValueError``: reading one needs
+    jax."""
     from ..core.checkpoint import CheckpointManager
 
-    model = build_depth_model(encoder, max_depth=max_depth, device=device,
-                              seed=seed)
+    model = build_depth_model(encoder, max_depth=max_depth, dtype=dtype,
+                              device=device, seed=seed)
     if load_from and os.path.isdir(load_from):
         state = CheckpointManager(load_from).read_best()
+        if state is None and _looks_like_orbax(load_from):
+            raise ValueError(
+                f"{load_from} holds Orbax checkpoints of the JAX package; "
+                "reading them needs jax, so convert them to a torch state "
+                "dict outside the port first (ROADMAP, \"Tools\": the "
+                "Orbax converter)")
         if state is None:
             raise FileNotFoundError(f"no checkpoints in {load_from}")
         model.load_state_dict(state["model"])
@@ -56,6 +67,15 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
     else:
         print(f"[{encoder}] no checkpoint given; random init (smoke mode)")
     return model
+
+
+def _looks_like_orbax(directory: str) -> bool:
+    """Orbax's layout: step directories holding ``_CHECKPOINT_METADATA``
+    or ``_METADATA`` files, not the port's ``state.pt``."""
+    for root, _, files in os.walk(directory):
+        if {"_CHECKPOINT_METADATA", "_METADATA"} & set(files):
+            return True
+    return False
 
 
 def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:

@@ -20,8 +20,7 @@ The state is a ``DepthTrainState`` (model, optimizer, step). The step
 updates it in place, as the JAX step donates its state, and returns it.
 
 Not ported (ROADMAP): the device mesh, tensor/sequence parallelism, FSDP,
-pipeline parallelism, token merging, int8, distillation and
-``eval_step_per_sample``.
+pipeline parallelism, token merging, int8 and distillation.
 """
 
 from __future__ import annotations
@@ -218,6 +217,27 @@ class DepthTask:
             out[f"{name}/d1"] = metrics["d1"]
             out[f"{name}/count"] = torch.sum(source == sid).float()
         return out
+
+    @torch.no_grad()
+    def eval_step_per_sample(self, model: DepthAnythingV2,
+                             batch: Mapping[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+        """Per-sample loss and metrics, a dict of (B,) tensors, for the
+        per-procedure collectors of ``cli/test_depth.py``: true per-sample
+        values, as in the JAX package (the reference appends the batch's
+        metric once per sample). ``batch`` as for ``eval_step``."""
+        image = self._tensor(batch["image"])
+        pred = model(image)
+        depth = self._tensor(batch["depth"])
+        gt = depth[..., 0] if depth.dim() == 4 else depth
+        maxd = self._max_depth(batch, (image.shape[0],))
+        rows = []
+        for pred_i, gt_i, maxd_i in zip(pred, gt, maxd):
+            mask = (gt_i >= self.min_depth) & (gt_i <= maxd_i)
+            row = compute_depth_errors(pred_i, gt_i, mask)
+            row["loss"] = silog_loss(pred_i, gt_i, mask)
+            rows.append(row)
+        return {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
 
 
 def _merge_params(base: Mapping[str, torch.Tensor],

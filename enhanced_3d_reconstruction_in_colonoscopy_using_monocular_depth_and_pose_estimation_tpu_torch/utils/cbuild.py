@@ -6,11 +6,13 @@ the root of the checkout (a directory git ignores), keyed by a hash of the
 sources and flags, and loaded with ``ctypes``. PyTorch's headers are never
 included, so a build takes seconds, not minutes.
 
-Host C++ sources, ``csrc/host/<name>.cpp`` (the media codecs), are named
-``host/<name>`` and compiled by ``g++`` with the JAX package's flags
-(``-O3 -march=native``, so the codecs' output matches it byte for byte)
-into ``build/host/<name>_<hash>_<isa>.so``; the ISA tag keeps a library
-tuned for one CPU from being loaded on another.
+Host C++ sources, ``csrc/host/<name>.cpp`` (the media and image codecs),
+are named ``host/<name>`` and compiled by ``g++`` with the JAX package's
+flags (``-O3 -march=native``, so the codecs' output matches it byte for
+byte), and the libraries a source links (``HOST_LINK``: zlib for the PNG
+reader), into ``build/host/<name>_<hash>_<isa>.so``; the hash covers the
+source and every flag, and the ISA tag keeps a library tuned for one CPU
+from being loaded on another.
 
 ``build`` starts one compiler per missing library, all at once, so a cold
 start costs the slowest source rather than their sum. The build happens
@@ -38,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 HOST_PREFIX = "host/"
+# Libraries a host source links, after the source on g++'s command line.
+HOST_LINK = {"host/pngdec": ("-lz",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -80,7 +84,8 @@ def _source(name: str) -> Path:
 def library_path(name: str) -> Path:
     """Where the library built from ``name``'s source lives."""
     host = _is_host(name)
-    h = hashlib.sha256(" ".join(HOST_FLAGS if host else NVCC_FLAGS).encode())
+    flags = (*HOST_FLAGS, *HOST_LINK.get(name, ())) if host else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(_source(name).read_bytes())
     if host:
         return (HOST_BUILD_DIR / f"{name[len(HOST_PREFIX):]}_"
@@ -92,7 +97,8 @@ def library_path(name: str) -> Path:
 
 def _command(name: str, out: Path) -> list[str]:
     if _is_host(name):
-        return ["g++", *HOST_FLAGS, str(_source(name)), "-o", str(out)]
+        return ["g++", *HOST_FLAGS, str(_source(name)), "-o", str(out),
+                *HOST_LINK.get(name, ())]
     return [_nvcc(), *NVCC_FLAGS, str(_source(name)), "-o", str(out)]
 
 

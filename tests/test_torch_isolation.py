@@ -1,4 +1,6 @@
-"""The port imports neither JAX nor any module of the JAX package."""
+"""The port imports neither JAX nor any module of the JAX package, nor
+PyYAML, cv2 or PIL (its own YAML subset, codecs and writers take their
+place)."""
 
 import os
 import subprocess
@@ -11,20 +13,26 @@ JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
 
 # Every module of the port; the probe fails if one is missing or leaks.
 MODULES = (
-    "cli.convert_video", "cli.video_depth",
-    "core.checkpoint", "core.debug", "core.device", "core.dtypes",
-    "core.logging", "core.metrics", "data.preprocess",
+    "cli.convert_video", "cli.infer", "cli.serve", "cli.test_depth",
+    "cli.train_depth", "cli.video_depth",
+    "core.checkpoint", "core.config", "core.debug", "core.device",
+    "core.dtypes", "core.logging", "core.metrics", "core.yamlsubset",
+    "data.c3vd", "data.combined", "data.io", "data.loader", "data.native",
+    "data.preprocess", "data.simcol", "data.synthetic",
     "evaluation.depth_metrics", "losses.silog", "media.colormap",
-    "media.native", "media.video", "models.convert",
+    "media.imageio", "media.native", "media.video", "models.convert",
     "models.depth_anything", "models.dinov2", "models.dpt", "ops.attention",
     "ops.augment", "ops.flash_attention", "ops.resize", "serving.engine",
     "train.depth_task", "train.loop", "train.optim", "utils.cbuild",
+    "utils.experiment",
 )
 
 _PROBE = f"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None    # any "import jax" now raises ImportError
-sys.modules["flax"] = None
+# Any import of these now raises ImportError: the card's machine need
+# not have them.
+for name in ("jax", "flax", "yaml", "cv2", "PIL"):
+    sys.modules[name] = None
 import {PORT} as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, "{PORT}.")]
 for name in names:
@@ -36,6 +44,24 @@ print(len(names), leaked)
 assert not leaked, leaked
 missing = sorted(set("{PORT}." + m for m in {MODULES!r}) - set(names))
 assert not missing, missing
+
+# The file paths that replaced cv2, PIL and PyYAML run without them.
+import os, tempfile
+from {PORT}.core import config
+from {PORT}.data import c3vd, simcol, synthetic
+with tempfile.TemporaryDirectory() as tmp:
+    root = synthetic.make_simcol_fixture(os.path.join(tmp, "s"), 2, 2, 16)
+    sample = simcol.SimColDataset(root, os.path.join(root, "train.txt"), 14,
+                                  "Train", host_resize=True)[0]
+    assert sample["image"].shape == (14, 14, 3), sample["image"].shape
+    croot = synthetic.make_c3vd_fixture(os.path.join(tmp, "c"), 1, 2, 16)
+    sample = c3vd.C3VDDataset(croot, os.path.join(croot, "train.txt"), 14,
+                              "Train")[1]
+    assert sample["depth"].shape == (16, 16), sample["depth"].shape
+    cfg = config.compose(os.path.join(os.getcwd(), "configs"), "default",
+                         ["model=large", "model.encoder_lr=1e-5"])
+    config.snapshot(cfg, os.path.join(tmp, "snap"))
+    assert cfg.model.encoder_lr == 1e-5
 """
 
 

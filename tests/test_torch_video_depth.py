@@ -129,7 +129,7 @@ def test_unported_flags_exit_with_an_error(fixture_dir, flags, capsys):
     with pytest.raises(SystemExit) as exc:
         tvd.main(_args(fixture_dir, out, *flags, "--device", "cpu"))
     assert exc.value.code == 2
-    assert "ROADMAP item 11" in capsys.readouterr().err
+    assert 'ROADMAP, "Speed dials"' in capsys.readouterr().err
     assert not os.path.exists(out)
 
 
