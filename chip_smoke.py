@@ -45,7 +45,22 @@ port's paths at vitl width with seeded random weights:
   batch; a finite train_loss, the snapshot and a checkpoint); and
   ``cli.test_depth.main`` on that checkpoint directory (K1 24 per batch;
   finite metrics; abs_rel and rmse within 2x the plain bf16 run's
-  distance from the plain f32 run, plus 1e-3 relative).
+  distance from the plain f32 run, plus 1e-3 relative);
+- vitg, the giant encoder (40 fused-SwiGLU blocks, 24 heads): phase "K1"
+  also times K1 at vitg's (8, 1370, 24, 64); ``cli.infer.main --encoder
+  vitg`` on the 32-frame tree (K1 40 per batch, maps by the video rule)
+  and a ``BatchedRunner`` batch of 8 (device ms, frames/s, peak memory);
+  one vitg microbatch of 2 through ``DepthTask``'s loss under gradient
+  checkpointing (K1 80, K2 40; every parameter, ``mlp.w12`` and ``mlp.w3``
+  included, a finite non-zero gradient; the kernels' gradient against
+  the plain bf16 and f32 backward);
+- pose: ``cli.train_pose.main`` at the recipe's size (518 px, batch 64,
+  '32-true' with TF32 off, cycled momentum) on a SimCol tree of four
+  65-frame procedures (two train: two optimizer steps; one validates, one
+  tests), the test JSON's ATE/RTE/ROTE finite, no attention kernel or K6
+  launched, ms per step, pairs/s, peak memory and a profiled step's idle
+  share; one more step in bf16-mixed; and one ``PoseTask.train_step`` on
+  the card against the CPU from the same weights and batch.
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -85,6 +100,8 @@ JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
            "depth_and_pose_estimation_tpu")
 JAX_FLASH = f"{JAX_PKG}/ops/flash_attention.py"
 FLAGSHIP = (8, 1370, 16, 64)  # vitl at 518 px: B, N, H, D
+VITG_SHAPE = (8, 1370, 24, 64)  # vitg at 518 px
+VITG_BLOCKS = 40        # vitg depth: one K1 launch per block per batch
 # The decoder's align-corners resizes at vitl, batch 8, 518 px (NCHW):
 # the four fusion upsamples at 256 channels, then the head's at 128.
 DPT_RESIZES = [((8, 256, 19, 19), (37, 37)), ((8, 256, 37, 37), (74, 74)),
@@ -277,12 +294,44 @@ def _last_launch() -> tuple[int, int]:
     return blocks.value, per_sm.value
 
 
+def _time_forward(label: str, call, shape) -> dict:
+    """A forward's time at ``shape`` beside the plain version, SDPA and
+    the bound; the rate, and the grid and waves of the timed launches as
+    the library reports them."""
+    import torch
+    import torch.nn.functional as F
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    b, n, h, d = shape
+    q, k, v = _attention_case(*shape, 0)
+    ms = _cuda_ms(lambda: call(q, k, v), iters=50)
+    blocks, per_sm = _last_launch()
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                        iters=5, warmup=1)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = _cuda_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=50)
+    flops = 4 * b * h * n * n * d
+    nbytes = 4 * b * n * h * d * 2 + b * h * n * 4
+    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(flop_ms, byte_ms)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{label} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
+          f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+          f"MB), {flops / ms / 1e9:.1f} TFLOP/s; {blocks} blocks, {per_sm} "
+          f"per SM on {sms} SMs, {blocks / (per_sm * sms):.2f} waves")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "library_ms": library_ms}
+
+
 def phase_forward(label: str, name: str, line: int, call) -> dict:
     """A forward kernel (K1, K4, or K5 in one schedule) against the plain
     version at the flagship shape, at D 32 and at a small ragged N; K4 and
-    K5 also against K1. Times at the flagship shape beside the plain
-    version, SDPA and the bound; the rate, and the grid and waves of the
-    timed launches as the library reports them."""
+    K5 also against K1. Times at the flagship shape (``_time_forward``),
+    and at D 32 beside SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -296,8 +345,10 @@ def phase_forward(label: str, name: str, line: int, call) -> dict:
     o_tol, lse_tol = 2e-2, 1e-3
     errs = {}
     k1_diff = 0.0
-    for shape, seed in ((FLAGSHIP, 0), ((2, 130, 5, 32), 1),
-                        ((2, 50, 4, 64), 2)):
+    cases = [(FLAGSHIP, 0), ((2, 130, 5, 32), 1), ((2, 50, 4, 64), 2)]
+    if label == "K1":
+        cases.append((VITG_SHAPE, 3))
+    for shape, seed in cases:
         q, k, v = _attention_case(*shape, seed)
         o, lse = call(q, k, v)
         torch.cuda.synchronize()
@@ -322,26 +373,8 @@ def phase_forward(label: str, name: str, line: int, call) -> dict:
                                  f"or K1 at {shape}")
         errs[shape] = max(eo, el)
 
+    t = _time_forward(label, call, FLAGSHIP)
     b, n, h, d = FLAGSHIP
-    q, k, v = _attention_case(*FLAGSHIP, 0)
-    ms = _cuda_ms(lambda: call(q, k, v), iters=50)
-    blocks, per_sm = _last_launch()
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                        iters=5, warmup=1)
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = _cuda_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=50)
-    flops = 4 * b * h * n * n * d
-    nbytes = 4 * b * n * h * d * 2 + b * h * n * 4
-    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
-    byte_ms = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(flop_ms, byte_ms)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"{label} {FLAGSHIP}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x), bound "
-          f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
-          f"MB), {flops / ms / 1e9:.1f} TFLOP/s; {blocks} blocks, {per_sm} "
-          f"per SM on {sms} SMs, {blocks / (per_sm * sms):.2f} waves")
     # The same work at D 32 (the smaller encoders' head dim): the kernel
     # beside SDPA, printed only.
     d32 = (b, n, h, 32)
@@ -354,12 +387,13 @@ def phase_forward(label: str, name: str, line: int, call) -> dict:
     rec = {"name": name, "route": "cuda",
            "source": f"{PKG}/csrc/flash_attn_fwd.cu",
            "replaces": f"{JAX_FLASH}:{line}",
-           "max_abs_err": errs[FLAGSHIP], "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-           "library_ms": library_ms}
+           "max_abs_err": errs[FLAGSHIP], **t}
     if label != "K1":
         rec["max_diff_k1"] = k1_diff
+    else:  # K1 at vitg's shape, the giant encoder's 24 heads
+        rec["vitg"] = {"shape": list(VITG_SHAPE),
+                       "max_abs_err": errs[VITG_SHAPE],
+                       **_time_forward(label, call, VITG_SHAPE)}
     return rec
 
 
@@ -1082,11 +1116,14 @@ def _flat(grads: dict):
     return torch.cat([g.float().flatten() for _, g in sorted(grads.items())])
 
 
-def phase_grads(data) -> None:
-    """One microbatch's backward on the kernels: every trainable parameter
-    gets a finite, non-zero gradient (each attn.qkv weight and bias in
-    particular). Then the kernels' gradient against the plain attention's
-    in bf16 and in f32, all with gradient checkpointing."""
+def phase_grads(data, encoder: str = "vitl", n_count: int = BATCH,
+                blocks: int = BLOCKS) -> dict[str, int]:
+    """One microbatch of ``n_count`` through ``DepthTask``'s loss and the
+    backward on the kernels, with gradient checkpointing: every trainable
+    parameter gets a finite, non-zero gradient (each attn.qkv weight and
+    bias, and vitg's mlp.w12 and mlp.w3, in particular). Then the kernels'
+    gradient against the plain attention's in bf16 and in f32 on a
+    microbatch of 2. Returns the launches of the counted backward."""
     import torch
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
@@ -1095,8 +1132,8 @@ def phase_grads(data) -> None:
     dt = importlib.import_module(f"{PKG}.train.depth_task")
     pre = importlib.import_module(f"{PKG}.data.preprocess")
 
-    task = dt.DepthTask("vitl", device="cuda")
-    model = da.build_depth_model("vitl", device="cuda", seed=1,
+    task = dt.DepthTask(encoder, device="cuda")
+    model = da.build_depth_model(encoder, device="cuda", seed=1,
                                  grad_checkpoint=True).train()
     batch = pre.DevicePreprocessor(518, device="cuda")(data.batches[0],
                                                        train=False)
@@ -1122,27 +1159,31 @@ def phase_grads(data) -> None:
                 if name != "pretrained.mask_token"}
 
     bwd = _bwd_name(fa._BWD_FUSED)
+    torch.cuda.synchronize()
     _reset_counts(fa)
-    g8 = grads(BATCH)
+    counted = grads(n_count)
     torch.cuda.synchronize()
     counts = _counts(fa)
-    want = {"K1": 2 * BLOCKS, "K2": 0, "K3": 0, bwd: BLOCKS}
+    want = {"K1": 2 * blocks, "K2": 0, "K3": 0, bwd: blocks}
     if counts != want:
-        raise AssertionError(f"grads: launches {counts}, want {want} (K1 "
-                             "forward and recompute)")
-    bad = [name for name, g in g8.items() if g is None
+        raise AssertionError(f"grads {encoder}: launches {counts}, want "
+                             f"{want} (K1 forward and recompute)")
+    bad = [name for name, g in counted.items() if g is None
            or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
-    qkv = [name for name in g8 if ".attn.qkv." in name]
-    print(f"grads, vitl microbatch {BATCH} on K1/{bwd}: {len(g8)} parameters "
-          f"({len(qkv)} attn.qkv weights and biases), launches {counts}; "
-          f"{len(g8) - len(bad)} with a finite, non-zero gradient")
-    if bad or len(qkv) != 2 * BLOCKS:
-        raise AssertionError(f"grads: no finite, non-zero gradient for "
-                             f"{bad[:8]}")
-    del g8
+    qkv = [name for name in counted if ".attn.qkv." in name]
+    ffn = sorted({name.rsplit(".", 1)[0].split(".mlp.")[1]
+                  for name in counted if ".mlp." in name})
+    print(f"grads, {encoder} microbatch {n_count} on K1/{bwd}: "
+          f"{len(counted)} parameters ({len(qkv)} attn.qkv weights and "
+          f"biases; FFN {ffn}), launches {counts}; "
+          f"{len(counted) - len(bad)} with a finite, non-zero gradient")
+    if bad or len(qkv) != 2 * blocks:
+        raise AssertionError(f"grads {encoder}: no finite, non-zero "
+                             f"gradient for {bad[:8]}")
 
-    n = 2  # plain attention keeps (n, 16, 1370, 1370) f32 scores
-    kernel = _flat(grads(n))
+    n = 2  # plain attention keeps (n, H, 1370, 1370) f32 scores
+    kernel = _flat(counted if n_count == n else grads(n))
+    del counted
     plain = _flat(grads(n, plain=True))
     f32 = _flat(grads(n, plain=True, f32=True))
     cos = torch.nn.functional.cosine_similarity
@@ -1152,15 +1193,17 @@ def phase_grads(data) -> None:
 
     (d_kf, c_kf), (d_pf, c_pf) = dist(kernel), dist(plain)
     d_kp = ((kernel - plain).norm() / plain.norm()).item()
-    print(f"grads, vitl microbatch {n}, flattened ({kernel.numel()} values): "
-          f"K1/{bwd} bf16 vs plain f32 rel. norm {d_kf:.4f}, cos {c_kf:.6f}; "
-          f"plain bf16 vs plain f32 {d_pf:.4f}, cos {c_pf:.6f}; K1/{bwd} vs "
-          f"plain bf16 {d_kp:.4f}")
-    # Random vitl weights amplify bf16 rounding, so the check is relative:
-    # the kernels may be no further from f32 than 1.5x the plain bf16 path.
+    print(f"grads, {encoder} microbatch {n}, flattened ({kernel.numel()} "
+          f"values): K1/{bwd} bf16 vs plain f32 rel. norm {d_kf:.4f}, cos "
+          f"{c_kf:.6f}; plain bf16 vs plain f32 {d_pf:.4f}, cos {c_pf:.6f}; "
+          f"K1/{bwd} vs plain bf16 {d_kp:.4f}")
+    # Random weights amplify bf16 rounding, so the check is relative: the
+    # kernels may be no further from f32 than 1.5x the plain bf16 path.
     if not (d_kf <= 1.5 * d_pf and 1 - c_kf <= 1.5 ** 2 * (1 - c_pf)):
-        raise AssertionError("grads: the kernels' gradient is further from "
-                             "f32 than 1.5x the plain bf16 gradient's")
+        raise AssertionError(f"grads {encoder}: the kernels' gradient is "
+                             "further from f32 than 1.5x the plain bf16 "
+                             "gradient's")
+    return counts
 
 
 def _read_log(log_dir: str) -> list[dict]:
@@ -1446,11 +1489,13 @@ def _check_maps_relative(label: str, maps, plain, f32) -> None:
                              "plain bf16 model allows")
 
 
-def phase_infer_cli(model, tmp: str, smi: str) -> tuple:
-    """``cli.infer.main`` at vitl on a SimCol tree of 32 frames (batch 8,
-    ``--save-numpy``): K1's launches, every map against the plain f32
-    model, and skip-existing on a second run. Returns the launches, the
-    frames' paths and BGR arrays, and the yardstick maps."""
+def phase_infer_cli(model, tmp: str, smi: str, encoder: str = "vitl",
+                    blocks: int = BLOCKS, rerun: bool = True) -> tuple:
+    """``cli.infer.main --encoder <encoder>`` (vitl by default) on a SimCol
+    tree of 32 frames (batch 8, ``--save-numpy``): K1's launches, every
+    map against the plain f32 model (``model``: the CLI's own seeded
+    weights), and skip-existing on a second run (``rerun``). Returns the
+    launches, the frames' paths and BGR arrays, and the yardstick maps."""
     import glob
     import os
 
@@ -1464,13 +1509,13 @@ def phase_infer_cli(model, tmp: str, smi: str) -> tuple:
     infer = importlib.import_module(f"{PKG}.cli.infer")
 
     root = synthetic.make_simcol_fixture(
-        os.path.join(tmp, "infer"), n_procedures=2,
+        os.path.join(tmp, f"infer_{encoder}"), n_procedures=2,
         frames_per_proc=CLI_FRAMES // 2, hw=FRAME_HW[0], seed=21)
     paths = sorted(glob.glob(os.path.join(
         root, "SyntheticColon_I", "Frames_S*", "FrameBuffer_*.png")))
     bgr = [np.ascontiguousarray(dio.decode_rgb(p)[..., ::-1])
            for p in paths]
-    args = ["-i", root, "-d", "simcol", "--encoder", "vitl",
+    args = ["-i", root, "-d", "simcol", "--encoder", encoder,
             "--batch-size", str(BATCH), "--save-numpy"]
     torch.cuda.synchronize()
     _video_counts(fa, rz, zero=True)
@@ -1478,9 +1523,10 @@ def phase_infer_cli(model, tmp: str, smi: str) -> tuple:
     torch.cuda.synchronize()
     counts = _video_counts(fa, rz)
     batches = -(-CLI_FRAMES // BATCH)
-    want = _want(K1=BLOCKS * batches)
+    want = _want(K1=blocks * batches)
     host = 1.0 - result["model_seconds"] / result["seconds"]
-    print(f"infer CLI: {result['processed']} frames of {FRAME_HW} in "
+    print(f"infer CLI ({encoder}): {result['processed']} frames of "
+          f"{FRAME_HW} in "
           f"{result['seconds']:.2f} s through main() (model init, decode, "
           f"{batches} batches, render, PNG and .npy writes): "
           f"{CLI_FRAMES / result['seconds']:.2f} frames/s; in the model's "
@@ -1493,7 +1539,9 @@ def phase_infer_cli(model, tmp: str, smi: str) -> tuple:
         root, "SyntheticColon_I", f"{os.path.basename(os.path.dirname(p))}"
         "_OP", os.path.basename(p)[:-4] + ".npy")) for p in paths])
     plain, f32 = _plain_maps(model, bgr)
-    _check_maps_relative("infer CLI", maps, plain, f32)
+    _check_maps_relative(f"infer CLI ({encoder})", maps, plain, f32)
+    if not rerun:
+        return counts, paths, bgr, plain, f32
 
     # Skip-existing: a second run skips all 32. (The SimCol glob,
     # Frames_*, also takes the first run's Frames_*_OP renderings as new
@@ -1712,6 +1760,287 @@ def phase_test_cli(ckpt_dir: str, data: list, tmp: str, smi: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- vitg, pose
+
+
+def phase_vitg_serve(tmp: str, smi: str) -> dict[str, int]:
+    """vitg (40 SwiGLU blocks, 24 heads) at 518 px: ``cli.infer.main
+    --encoder vitg`` on the 32-frame SimCol tree (batch 8; every map held
+    to the plain f32 model by the video rule), then a ``BatchedRunner``
+    batch of 8 on the host clock and the device forward on CUDA events,
+    with frames/s and peak memory. K1 40 a batch, all others 0. Returns
+    the CLI's launches."""
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+
+    model = da.build_depth_model("vitg", max_depth=20.0, device="cuda",
+                                 seed=0)
+    counts, _, bgr, _, _ = phase_infer_cli(model, tmp, smi, "vitg",
+                                           VITG_BLOCKS, rerun=False)
+    batch = bgr[:BATCH]
+    runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
+    runner(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _video_counts(fa, rz, zero=True)
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        runner(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    runner_counts = _video_counts(fa, rz)
+    x = torch.from_numpy(np.stack(batch)).cuda()
+    dev_ms = _cuda_ms(lambda: da._run_batched_u8(
+        model, x, runner.net_hw, FRAME_HW), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(p.numel() for p in model.parameters())
+    print(f"vitg serve, 518 px, batch {BATCH}, {smi}: {params / 1e9:.3f} B "
+          f"parameters; BatchedRunner {ms:.2f} ms/batch, "
+          f"{BATCH / ms * 1e3:.2f} frames/s; device forward "
+          f"{dev_ms:.2f} ms/batch, {BATCH / dev_ms * 1e3:.2f} frames/s; "
+          f"peak device memory {peak:.2f} GiB; launches over {iters} "
+          f"batches {runner_counts}")
+    if runner_counts != _want(K1=VITG_BLOCKS * iters):
+        raise AssertionError(f"vitg serve: launches {runner_counts}")
+    return counts
+
+
+# Pose: SimCol-shaped procedures of 65 frames (64 pairs each): two train
+# (two optimizer steps of 64), one validates, one tests.
+POSE_BATCH = 64
+POSE_FRAMES = 65
+
+
+def _pose_tree(tmp: str) -> str:
+    import os
+
+    synthetic = importlib.import_module(f"{PKG}.data.synthetic")
+    root = synthetic.make_simcol_fixture(
+        os.path.join(tmp, "pose"), n_procedures=4,
+        frames_per_proc=POSE_FRAMES, hw=FRAME_HW[0], seed=41)
+    for name, procs in (("train", (1, 2)), ("val", (3,)), ("test", (4,))):
+        with open(os.path.join(root, f"{name}.txt"), "w",
+                  encoding="utf-8") as f:
+            f.write(",".join(f"SyntheticColon_I/Frames_S{p}" for p in procs))
+    return root
+
+
+def phase_pose(tmp: str, smi: str) -> dict[str, int]:
+    """``cli.train_pose.main`` at the recipe's size (518 px, batch 64,
+    '32-true', cycled momentum) on a SimCol tree of 475x475 frames: two
+    optimizer steps, validation, the test JSON's per-procedure and
+    overall ATE/RTE/ROTE all finite, no attention kernel or K6 launched;
+    ms per step, pairs/s and peak memory; a second run takes one step in
+    bf16-mixed; then one step profiled for the card's idle share. Returns
+    the launches."""
+    import math
+    import os
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    train_pose = importlib.import_module(f"{PKG}.cli.train_pose")
+    pose_data = importlib.import_module(f"{PKG}.data.pose")
+    pose_task = importlib.import_module(f"{PKG}.train.pose_task")
+
+    root = _pose_tree(tmp)
+    lists = {m: f"{root}/{m}.txt" for m in ("train", "val", "test")}
+    data = [f"dataset.data_dir={root}",
+            f"dataset.train_list={lists['train']}",
+            f"dataset.val_list={lists['val']}",
+            f"dataset.test_list={lists['test']}", "dataset.size=518",
+            f"dataset.batch_size={POSE_BATCH}", "trainer.max_epochs=1",
+            "trainer.log_every_n_steps=1"]
+
+    def run(name: str, *extra: str) -> tuple:
+        cwd = os.path.join(tmp, name)
+        os.makedirs(cwd)
+        os.environ["E3D_RESULTS_DIR"] = os.path.join(cwd, "results")
+        os.chdir(cwd)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = _captured(train_pose.main, data + list(extra))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(tmp)
+        return out, _read_log(os.path.join(cwd, out["run_dir"])), seconds
+
+    here = os.getcwd()
+    torch.cuda.reset_peak_memory_stats()
+    _video_counts(fa, rz, zero=True)
+    try:
+        out, records, seconds = run("f32")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = _video_counts(fa, rz)
+        out16, records16, seconds16 = run("bf16", "trainer.precision=bf16-mixed",
+                                          "++trainer.max_steps=1")
+    finally:
+        os.chdir(here)
+    train = [r for r in records if "train_loss" in r]
+    val = [r for r in records if "val_loss" in r]
+    step_s = next(r for r in records
+                  if "perf/step_time_mean_s" in r)["perf/step_time_mean_s"]
+    values = [v for m in out["procedure_metrics"].values() for v in m.values()]
+    values += list(out["overall_metrics"].values())
+    values += [r["train_loss"] for r in train] + [val[-1]["val_loss"]]
+    loss16 = [r["train_loss"] for r in records16 if "train_loss" in r]
+    print(f"pose, train_pose CLI, 518 px, batch {POSE_BATCH}, 32-true "
+          f"(TF32 off), cycled b1: {len(train)} optimizer steps, "
+          f"validation on {POSE_FRAMES - 1} pairs, test on "
+          f"{POSE_FRAMES - 1}: {seconds:.2f} s through main() (fixture "
+          f"excluded); per optimizer step (StepTimer, the first with its "
+          f"set-up) {step_s * 1e3:.1f} ms, {POSE_BATCH / step_s:.2f} "
+          f"pairs/s; peak device memory "
+          f"{peak:.2f} GiB; {smi}; losses "
+          f"{[round(r['train_loss'], 5) for r in train]}, val_loss "
+          f"{val[-1]['val_loss']:.5f}; launches {counts}")
+    for proc, m in out["procedure_metrics"].items():
+        print(f"  {proc}: " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()))
+    print("  overall: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in out["overall_metrics"].items()))
+    print(f"pose, bf16-mixed: {len(loss16)} optimizer step in "
+          f"{seconds16:.2f} s through main(), loss {loss16}")
+    steps = 2 * (POSE_FRAMES - 1) // POSE_BATCH
+    if counts != _want() or len(train) != steps or len(val) != 1 \
+            or sorted(out["procedure_metrics"]) != ["SyntheticColon_I/S4"] \
+            or sorted(out["overall_metrics"]) != ["ate", "rote", "rte"] \
+            or not all(math.isfinite(v) for v in values + loss16) \
+            or len(loss16) != 1:
+        raise AssertionError(f"pose: launches {counts}; {out}; {records}")
+
+    # One optimizer step as fit_pose takes it (host batch in, upload,
+    # forward, loss, backward, clip, AdamW), profiled.
+    dm = pose_data.PoseDataModule(root, lists["train"], lists["val"],
+                                  lists["test"], batch_size=POSE_BATCH,
+                                  size=518)
+    dm.setup("fit")
+    batch = next(iter(dm.train_loader()))
+    task = pose_task.PoseTask(total_steps=8, cycle_momentum=True,
+                              device="cuda")
+    state = task.init_state(0)
+    task.train_step(state, batch)
+    torch.cuda.synchronize()
+    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        task.train_step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    print(f"pose optimizer step, steady state (host batch in, upload, "
+          f"forward, backward, clip, AdamW; {smi}): {ms:.1f} ms, "
+          f"{POSE_BATCH / ms * 1e3:.2f} pairs/s")
+    _profiled(lambda: task.train_step(state, batch), iters,
+              f"pose optimizer step (batch {POSE_BATCH}, 518 px, 32-true)")
+    return counts
+
+
+def phase_pose_parity() -> None:
+    """One ``PoseTask.train_step`` ('32-true', TF32 off, dropout off) from
+    the same weights and batch on the card and on the CPU. cuDNN and the
+    CPU's convolutions sum in other orders: the loss within 1e-4
+    relative; the clipped gradient (all parameters) within 1e-2 in
+    relative norm: BatchNorm's backward reduces in f32 on the card and in
+    f64 on the CPU, and random weights amplify the difference (up to 1e-3
+    from an f64 gradient here, 4e-3 from the CPU's on the card test's
+    batch), where TF32 would put it 0.1 away (the phase prints the
+    distances from f64 at 64 and 128 px); the running statistics within
+    1e-4 relative and 1e-5 absolute, every
+    parameter within 2 lr of the CPU's (Adam's first step moves each by
+    about +-lr, either way where the gradient is at rounding level) and at
+    most 1% of them further than 1e-6 lr, and the updated nets' eval
+    poses within 1e-3."""
+    import torch
+
+    pose_task = importlib.import_module(f"{PKG}.train.pose_task")
+    gen = torch.Generator().manual_seed(5)
+    batch = {"input": torch.randn((8, 8, 128, 128), generator=gen),
+             "target": torch.randn((8, 7), generator=gen)}
+    args = dict(dropout=False, cycle_momentum=True, total_steps=10)
+    cpu_task = pose_task.PoseTask(device="cpu", **args)
+    cpu = cpu_task.init_state(seed=0)
+    gpu_task = pose_task.PoseTask(device="cuda", **args)
+    gpu = gpu_task.init_state(weights={
+        k: v.clone() for k, v in cpu.model.state_dict().items()})
+    cpu, cpu_m = cpu_task.train_step(cpu, batch)
+    gpu, gpu_m = gpu_task.train_step(gpu, batch)
+    _, cpu_pred = cpu_task.eval_step(cpu, batch)
+    _, gpu_pred = gpu_task.eval_step(gpu, batch)
+    lr0 = float(cpu_task.lr_table()[0])
+    loss_rel = abs(gpu_m["loss"].item() - cpu_m["loss"].item()) \
+        / abs(cpu_m["loss"].item())
+    g_cpu = torch.cat([p.grad.flatten() for p in cpu.model.parameters()])
+    g_gpu = torch.cat([p.grad.flatten().cpu()
+                       for p in gpu.model.parameters()])
+    grad_rel = ((g_gpu - g_cpu).norm() / g_cpu.norm()).item()
+    param_max = 0.0
+    flipped = total = 0
+    for p_cpu, p_gpu in zip(cpu.model.parameters(), gpu.model.parameters()):
+        diff = (p_gpu.detach().cpu() - p_cpu.detach()).abs()
+        param_max = max(param_max, diff.max().item())
+        flipped += int((diff > 1e-6 * lr0 + 1e-8).sum())
+        total += diff.numel()
+    sd_cpu, sd_gpu = cpu.model.state_dict(), gpu.model.state_dict()
+    stats_ok = all(torch.allclose(sd_gpu[k].cpu(), sd_cpu[k], rtol=1e-4,
+                                  atol=1e-5)
+                   for k in sd_cpu if k.endswith(("running_mean",
+                                                  "running_var")))
+    stats_err = max((sd_gpu[k].cpu() - sd_cpu[k]).abs().max().item()
+                    for k in sd_cpu if k.endswith(("running_mean",
+                                                   "running_var")))
+    pred_err = (gpu_pred.cpu() - cpu_pred).abs().max().item()
+    print(f"pose parity, card (TF32 off) vs CPU, one step of 8 at 128 px: "
+          f"loss rel. {loss_rel:.2e} (tol 1e-4); gradient rel. norm "
+          f"{grad_rel:.2e} (tol 1e-2); running stats max|d| "
+          f"{stats_err:.2e}; parameters max|d| {param_max:.3e} (lr "
+          f"{lr0:.3e}, tol 2 lr), {flipped} of {total} beyond 1e-6 lr "
+          f"(tol 1%); eval poses max|d| {pred_err:.2e} (tol 1e-3)")
+    # How far f32 lies from f64 here: the raw gradient of the same net in
+    # f64 on the CPU against f32 on the CPU, on the card (TF32 off, as
+    # '32-true' runs) and on the card with TF32 on.
+    import copy
+
+    rp = importlib.import_module(f"{PKG}.models.resnet_pose")
+    pl = importlib.import_module(f"{PKG}.losses.pose_loss")
+
+    def raw_grad(model, x, t, tf32=False):
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=tf32):
+            pl.pose_loss(model(x), t).backward()
+        return torch.cat([p.grad.flatten().double().cpu()
+                          for p in model.parameters()])
+
+    for hw in (64, 128):
+        x = batch["input"][:, :, :hw, :hw].contiguous()
+        t = batch["target"]
+        base = rp.build_pose_model(dropout=False, device="cpu").train()
+        f64 = copy.deepcopy(base).double()
+        f64.dtype = torch.float64
+        ref = raw_grad(f64, x.double(), t)
+        d = {name: ((raw_grad(copy.deepcopy(base).to(dev), x.to(dev),
+                              t.to(dev), tf32) - ref).norm()
+                    / ref.norm()).item()
+             for name, dev, tf32 in (("CPU f32", "cpu", False),
+                                     ("card TF32 off", "cuda", False),
+                                     ("card TF32 on", "cuda", True))}
+        print(f"pose gradient at {hw} px against f64 on the CPU, rel. norm: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in d.items()))
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-2 and stats_ok
+            and param_max <= 2.0 * lr0 * 1.01 + 1e-7
+            and flipped <= 0.01 * total and pred_err <= 1e-3):
+        raise AssertionError("pose parity: the card's step is outside its "
+                             "tolerance of the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -1782,9 +2111,23 @@ def main() -> int:
         train_cli, ckpt_dir, cli_data = phase_train_cli(tmp, smi)
         torch.cuda.empty_cache()
         test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+    torch.cuda.empty_cache()
+
+    # The giant encoder (vitg) and the pose path.
+    with tempfile.TemporaryDirectory() as tmp:
+        vitg_serve = phase_vitg_serve(tmp, smi)
+    torch.cuda.empty_cache()
+    vitg_grads = _want(**phase_grads(SeededFrames(1, 0, BATCH, seed=2),
+                                     "vitg", 2, VITG_BLOCKS))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pose = phase_pose(tmp, smi)
+    phase_pose_parity()
     # "serve_cli": the serve CLI ("serve" is DepthServingEngine's phase).
     cli_paths = {"infer": infer, "serve_cli": served,
-                 "train_cli": train_cli, "test_cli": test_cli}
+                 "train_cli": train_cli, "test_cli": test_cli,
+                 "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
+                 "pose": pose}
 
     k1["launches"] = serve_k1
     k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"],

@@ -15,8 +15,8 @@ per-step LR logging to ``<run dir>/metrics.jsonl``.
 
 Knobs of later slices exit with a message naming their ROADMAP item: the
 mesh and parallel knobs ("Parallel modes"), ``distill_from`` and
-``debug_nans`` ("Distillation and NaN checks"); ``ds_type: pose`` raises
-(ROADMAP "Pose").
+``debug_nans`` ("Distillation and NaN checks"). ``ds_type: pose`` builds
+the pose-pair datamodule, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import sys
 def build_datamodule(dataset_cfg: dict):
     from ..data.c3vd import C3VDDataModule
     from ..data.combined import CombinedDataModule
+    from ..data.pose import PoseDataModule
     from ..data.simcol import SimColDataModule
 
     ds_type = dataset_cfg["ds_type"]
@@ -40,8 +41,7 @@ def build_datamodule(dataset_cfg: dict):
     if ds_type == "combined":
         return CombinedDataModule(**dataset_cfg)
     if ds_type == "pose":
-        raise NotImplementedError("ds_type 'pose' is not ported yet "
-                                  "(ROADMAP, \"Pose\")")
+        return PoseDataModule(**dataset_cfg)
     raise ValueError(f"unknown ds_type: {ds_type}")
 
 

@@ -1,4 +1,4 @@
-"""Weights for the port's depth model.
+"""Weights for the port's depth and pose models.
 
 The port's parameter names are the DAv2 ``.pth`` key names, so a reference
 checkpoint needs no renaming: ``load_torch_state_dict`` strips the
@@ -15,6 +15,12 @@ rules of its ``convert_dav2``:
 - PixelExpand ``(kh, kw, I, O)`` -> ConvTranspose2d ``(I, O, kh, kw)``;
 - Dense ``(I, O)`` -> Linear ``(O, I)``;
 - LayerNorm ``scale`` -> ``weight``.
+
+``from_jax_pose_variables`` does the same for the pose net's
+``{"params", "batch_stats"}`` (the inverse of the JAX package's
+``convert_pose_net``). The port's pose net has the reference's names, so
+a reference pose ``.pth``/``.ckpt`` loads through ``load_torch_state_dict``
+and ``load_state_dict`` directly.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from torch import nn
 
 from ..core.dtypes import POLICY_BF16
 from .depth_anything import MODEL_CONFIGS, DepthAnythingV2, build_depth_model
-from .dinov2 import VIT_ARCHS
+from .dinov2 import VIT_ARCHS, swiglu_hidden
 
 UNUSED_PREFIXES = ("depth_head.scratch.refinenet4.resConfUnit1.",)
 
@@ -154,10 +160,58 @@ def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+# JAX pose-net module -> the port's (reference) module path.
+_POSE_HEAD = {"head_fc1": "pose_head.2", "head_fc2": "pose_head.5",
+              "head_fc3": "pose_head.8"}
+_POSE_BLOCK = {"downsample_conv": "downsample.0",
+               "downsample_bn": "downsample.1"}
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _pose_module(name: str) -> str:
+    if name in _POSE_HEAD:
+        return _POSE_HEAD[name]
+    if name.startswith("layer"):
+        return "backbone." + name.replace("_", ".")
+    return f"backbone.{name}"
+
+
+def from_jax_pose_variables(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's pose-net ``{"params", "batch_stats"}`` -> the
+    port's state dict (conv HWIO -> OIHW, Dense (I, O) -> Linear (O, I),
+    BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
+    ``num_batches_tracked`` 0)."""
+    out: dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for top, node in variables[collection].items():
+            module = _pose_module(top)
+            for sub, leaves in node.items():
+                if not isinstance(leaves, Mapping):  # conv1, bn1, fc, head
+                    leaves, sub_path = {sub: leaves}, module
+                else:                                # inside a block
+                    sub_path = f"{module}.{_POSE_BLOCK.get(sub, sub)}"
+                for leaf, value in leaves.items():
+                    arr = np.asarray(value, np.float32)
+                    if leaf == "kernel":
+                        leaf = "weight"
+                        arr = arr.T if arr.ndim == 2 else \
+                            arr.transpose(3, 2, 0, 1)
+                    else:
+                        leaf = _BN_LEAVES[leaf]
+                    out[f"{sub_path}.{leaf}"] = torch.from_numpy(
+                        np.array(arr))
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        out[key[:-len("running_mean")] + "num_batches_tracked"] = \
+            torch.zeros((), dtype=torch.long)
+    return out
+
+
 def synthetic_dav2_state_dict(encoder: str,
                               seed: int = 0) -> dict[str, np.ndarray]:
     """Random torch-format DAv2 state dict (for tests: every key a DAv2
-    checkpoint has, with the true shapes)."""
+    checkpoint has, with the true shapes; vitg's blocks hold the SwiGLU
+    FFN's ``mlp.w12``/``mlp.w3``)."""
     rng = np.random.default_rng(seed)
     arch = VIT_ARCHS[encoder]
     cfg = MODEL_CONFIGS[encoder]
@@ -186,9 +240,17 @@ def synthetic_dav2_state_dict(encoder: str,
             f"{b}.attn.proj.weight": r(c, c), f"{b}.attn.proj.bias": r(c),
             f"{b}.ls1.gamma": 1 + r(c), f"{b}.ls2.gamma": 1 + r(c),
             f"{b}.norm2.weight": 1 + r(c), f"{b}.norm2.bias": r(c),
-            f"{b}.mlp.fc1.weight": r(4 * c, c), f"{b}.mlp.fc1.bias": r(4 * c),
-            f"{b}.mlp.fc2.weight": r(c, 4 * c), f"{b}.mlp.fc2.bias": r(c),
         }
+        if arch.get("ffn", "mlp") == "swiglu":
+            hid = swiglu_hidden(c)
+            s |= {f"{b}.mlp.w12.weight": r(2 * hid, c),
+                  f"{b}.mlp.w12.bias": r(2 * hid),
+                  f"{b}.mlp.w3.weight": r(c, hid), f"{b}.mlp.w3.bias": r(c)}
+        else:
+            s |= {f"{b}.mlp.fc1.weight": r(4 * c, c),
+                  f"{b}.mlp.fc1.bias": r(4 * c),
+                  f"{b}.mlp.fc2.weight": r(c, 4 * c),
+                  f"{b}.mlp.fc2.bias": r(c)}
     for i in range(4):
         s[f"depth_head.projects.{i}.weight"] = r(oc[i], c, 1, 1)
         s[f"depth_head.projects.{i}.bias"] = r(oc[i])

@@ -1,4 +1,5 @@
-"""DINOv2 ViT encoder (vits/vitb/vitl, patch 14) with DAv2 feature taps.
+"""DINOv2 ViT encoder (vits/vitb/vitl/vitg, patch 14) with DAv2 feature
+taps.
 
 Module and parameter names are those of the DAv2 ``.pth`` checkpoints
 (``pretrained.blocks.{i}.attn.qkv.weight``, ...), so a reference state dict
@@ -7,15 +8,16 @@ the dtype of its input (``DinoViT.dtype``, bf16 on the card):
 
 - patch embed: 14x14/14 conv; cls token; learned pos-embed for a 37x37
   grid (518 px), resized for other grids with torch-bicubic semantics;
-- pre-LN blocks (eps 1e-6), exact-GELU MLP (ratio 4), LayerScale;
+- pre-LN blocks (eps 1e-6), LayerScale, and an exact-GELU MLP (ratio 4)
+  or, for vitg (``ffn="swiglu"``), DINOv2's fused SwiGLU FFN;
 - taps at the DAv2 block indices, each with the final LayerNorm, returned
   as (patch_tokens, cls_token).
 
 Attention goes through ``ops.attention`` (kernels K1 and K2 on the card).
 The residual stream is never padded: the kernels mask the ragged token
 edge themselves. ``grad_checkpoint`` recomputes each block in the backward
-(the JAX package's ``nn.remat(Block)``), in training mode only. The
-fused-SwiGLU FFN of vitg, token merging and int8 are not ported yet.
+(the JAX package's ``nn.remat(Block)``), in training mode only, whatever
+the block's FFN. Token merging and int8 are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,6 +79,27 @@ class Mlp(nn.Module):
         return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
+def swiglu_hidden(dim: int, ratio: float = 4.0) -> int:
+    """DINOv2 SwiGLUFFNFused hidden width: 2/3 of the MLP hidden, rounded
+    up to a multiple of 8 (vitg: 1536 -> 4096)."""
+    return (int(dim * ratio * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLU(nn.Module):
+    """Fused-SwiGLU FFN (DINOv2 ``SwiGLUFFNFused``): ``w12`` packs the gate
+    and value projections, ``w3`` projects back. The names are the DAv2
+    checkpoint keys (``mlp.w12``, ``mlp.w3``)."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden_dim)
+        self.w3 = nn.Linear(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = linear(x, self.w12).chunk(2, dim=-1)
+        return linear(F.silu(x1) * x2, self.w3)
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -100,13 +123,18 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, ffn: str = "mlp"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, 4 * dim)
+        if ffn == "swiglu":
+            self.mlp = SwiGLU(dim, swiglu_hidden(dim))
+        elif ffn == "mlp":
+            self.mlp = Mlp(dim, 4 * dim)
+        else:
+            raise ValueError(f"unknown ffn: {ffn!r}")
         self.ls2 = LayerScale(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -176,16 +204,16 @@ class PatchEmbed(nn.Module):
 
 
 class DinoViT(nn.Module):
-    """DINOv2 ViT trunk exposing DAv2-style intermediate features."""
+    """DINOv2 ViT trunk exposing DAv2-style intermediate features. ``ffn``
+    overrides the encoder's FFN ("mlp" or "swiglu"); "" takes it from
+    ``VIT_ARCHS`` (swiglu for vitg)."""
 
     def __init__(self, encoder: str = "vitl",
                  dtype: torch.dtype = POLICY_BF16.compute_dtype,
-                 grad_checkpoint: bool = False):
+                 grad_checkpoint: bool = False, ffn: str = ""):
         super().__init__()
         arch = VIT_ARCHS[encoder]
-        if arch.get("ffn", "mlp") != "mlp":
-            raise NotImplementedError(f"{encoder}: the SwiGLU FFN is not "
-                                      "ported yet")
+        ffn = ffn or arch.get("ffn", "mlp")
         dim = arch["embed_dim"]
         pos_grid = POS_GRID if encoder != "vitt" else 4
         self.encoder = encoder
@@ -196,7 +224,7 @@ class DinoViT(nn.Module):
         # In the checkpoints; unused at inference.
         self.mask_token = nn.Parameter(torch.zeros(1, dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_grid ** 2, dim))
-        self.blocks = nn.ModuleList(Block(dim, arch["num_heads"])
+        self.blocks = nn.ModuleList(Block(dim, arch["num_heads"], ffn)
                                     for _ in range(arch["depth"]))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 

@@ -1,5 +1,8 @@
-"""Host-side depth fine-tuning loop: epochs, validation every fraction of
-an epoch, checkpoint on validation, early stopping, resume, metric logging.
+"""Host-side training loops: ``fit_depth`` (depth fine-tuning: epochs,
+validation every fraction of an epoch, checkpoint on validation, early
+stopping, resume, metric logging) and ``fit_pose`` (pose training:
+validation with trajectory metrics once per epoch, the same checkpoints
+and stopping).
 
 The JAX package's ``train/loop.py::fit_depth`` on one card, with the
 reference trainer's knobs (``max_epochs``, ``val_check_interval=0.5``,
@@ -26,6 +29,7 @@ from ..core.logging import MetricLogger
 from ..core.metrics import MetricBank
 from ..data.preprocess import DevicePreprocessor
 from .depth_task import METRIC_KEYS, DepthTask, DepthTrainState
+from .pose_task import PoseTask, PoseTrainState
 
 
 def _restore_stopper(stopper: EarlyStopping, ckpt: CheckpointManager) -> None:
@@ -200,3 +204,111 @@ def evaluate_depth(task: DepthTask, model, loader, pre: DevicePreprocessor,
     out.update({k: v / max(src_weight[k], 1e-12)
                 for k, v in src_sums.items()})
     return out
+
+
+def _accumulate_pose_val(sums: dict, counts: dict, metrics: dict,
+                         batch_size: int) -> None:
+    """Batch-mean accumulation of pose validation metrics. RTE is a mean
+    over consecutive-frame deltas, so a 1-sample batch (a trailing one)
+    has none and adds nothing to ``rte``; a NaN from a batch of two or
+    more still propagates."""
+    for k, v in metrics.items():
+        if k == "rte" and batch_size < 2:
+            continue
+        sums[k] = sums.get(k, 0.0) + float(v)
+        counts[k] = counts.get(k, 0) + 1
+
+
+def fit_pose(
+    task: PoseTask,
+    datamodule,
+    max_epochs: int,
+    log_dir: str,
+    ckpt_dir: str,
+    patience: int = 20,
+    logger: MetricLogger | None = None,
+    seed: int = 42,
+    max_steps: int | None = None,
+    resume: bool = False,
+    log_every: int = 1,
+) -> PoseTrainState:
+    """Train the pose regressor; returns the final train state (the JAX
+    package's ``fit_pose``).
+
+    Validation runs once per epoch and adds the whole validation
+    trajectory's metrics (``traj_*``); each validation is checkpointed with
+    the early-stopping state, and the checkpoint holds the BatchNorm
+    statistics with the model. ``resume=True`` restores the latest
+    checkpoint in ``ckpt_dir``. The datamodule has ``setup(stage)``,
+    ``train_loader()`` and ``val_loader()`` yielding ``input`` and
+    ``target`` batches."""
+    if getattr(datamodule, "train_dataset", None) is None:
+        datamodule.setup("fit")
+    own_logger = logger is None
+    logger = logger or MetricLogger(log_dir)
+    ckpt = CheckpointManager(ckpt_dir, max_to_keep=1)
+    stopper = EarlyStopping(patience=patience)
+
+    state = task.init_state(seed)
+    if resume and ckpt.restore_latest(state) is not None:
+        _restore_stopper(stopper, ckpt)
+        print(f"[fit_pose] resumed from step {state.step}")
+    lr_table = task.lr_table()
+    timer = StepTimer()
+    step = state.step
+    log_every = max(1, log_every)
+    # One loader for the whole fit: it reshuffles per epoch.
+    train_loader = datamodule.train_loader()
+
+    stop = False
+    for epoch in range(max_epochs):
+        if stop:
+            break
+        for batch in train_loader:
+            with timer.step():
+                state, metrics = task.train_step(state, batch)
+                step += 1
+                if step % log_every == 0 or (max_steps and step >= max_steps):
+                    logger.log(
+                        {"train_loss": metrics["loss"],
+                         **{f"Train/train_{k}": metrics[k]
+                            for k in ("ate", "rte", "rote")},
+                         "lr": float(lr_table[min(step - 1,
+                                                  len(lr_table) - 1)]),
+                         "epoch": epoch}, step=step)
+            if max_steps and step >= max_steps:
+                stop = True
+                break
+
+        val_sums: dict[str, float] = {}
+        val_counts: dict[str, int] = {}
+        preds, gts = [], []
+        for batch in datamodule.val_loader():
+            metrics, pred = task.eval_step(state, batch)
+            preds.append(pred)
+            gts.append(torch.as_tensor(batch["target"]))
+            _accumulate_pose_val(val_sums, val_counts, metrics,
+                                 len(batch["target"]))
+        val = {k: v / max(val_counts.get(k, 0), 1)
+               for k, v in val_sums.items()}
+        if preds:
+            traj = task.trajectory_metrics(torch.cat(preds), torch.cat(gts))
+            val.update({f"traj_{k}": float(v) for k, v in traj.items()})
+        val_loss = float(val.get("loss", 1e9))
+        logger.log({"val_loss": val.get("loss", float("nan")),
+                    **{f"Val/val_{k}": v for k, v in val.items()
+                       if k != "loss"}}, step=state.step, force_stdout=True)
+        should_stop = stopper.update(val_loss)
+        ckpt.save(state.step, state,
+                  {"val_loss": val_loss, "es_best": float(stopper.best),
+                   "es_bad_count": float(stopper.bad_count)})
+        if should_stop:
+            print(f"[early-stop] val_loss plateaued (best {stopper.best:.5f})")
+            break
+    summary = timer.summary()
+    if summary:
+        logger.log({f"perf/{k}": v for k, v in summary.items()},
+                   step=state.step)
+    if own_logger:
+        logger.close()
+    return state

@@ -198,8 +198,15 @@ def test_pose_and_orbax_raise_naming_their_item(simcol, tmp_path,
                                                 monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("E3D_CONFIG_ROOT", CONFIG_ROOT)
-    with pytest.raises(NotImplementedError, match='ROADMAP, "Pose"'):
-        ttrain.build_datamodule({"ds_type": "pose"})
+    # ds_type pose now builds the port's pose-pair datamodule, as the JAX
+    # package's build_datamodule does.
+    s = simcol / "simcol"
+    pose = ttrain.build_datamodule({
+        "ds_type": "pose", "data_dir": str(s),
+        "train_list": f"{s}/train.txt", "val_list": f"{s}/val.txt",
+        "test_list": f"{s}/test.txt", "batch_size": 2, "size": HW})
+    pose.setup("fit")
+    assert pose.train_dataset[0]["input"].shape == (8, HW, HW)
     orbax = tmp_path / "orbax"
     JaxCheckpointManager(str(orbax)).save(
         1, {"w": np.zeros(2, np.float32)}, {"val_loss": 1.0})

@@ -1,6 +1,6 @@
 """The port imports neither JAX nor any module of the JAX package, nor
 PyYAML, cv2 or PIL (its own YAML subset, codecs and writers take their
-place)."""
+place); ``train_pose --device cpu`` and a vitg block run without them."""
 
 import os
 import subprocess
@@ -14,17 +14,18 @@ JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
 # Every module of the port; the probe fails if one is missing or leaks.
 MODULES = (
     "cli.convert_video", "cli.infer", "cli.serve", "cli.test_depth",
-    "cli.train_depth", "cli.video_depth",
+    "cli.train_depth", "cli.train_pose", "cli.video_depth",
     "core.checkpoint", "core.config", "core.debug", "core.device",
     "core.dtypes", "core.logging", "core.metrics", "core.yamlsubset",
     "data.c3vd", "data.combined", "data.io", "data.loader", "data.native",
-    "data.preprocess", "data.simcol", "data.synthetic",
-    "evaluation.depth_metrics", "losses.silog", "media.colormap",
-    "media.imageio", "media.native", "media.video", "models.convert",
-    "models.depth_anything", "models.dinov2", "models.dpt", "ops.attention",
-    "ops.augment", "ops.flash_attention", "ops.resize", "serving.engine",
-    "train.depth_task", "train.loop", "train.optim", "utils.cbuild",
-    "utils.experiment",
+    "data.pose", "data.preprocess", "data.simcol", "data.synthetic",
+    "evaluation.depth_metrics", "evaluation.pose_metrics", "losses.pose_loss",
+    "losses.silog", "media.colormap", "media.imageio", "media.native",
+    "media.video", "models.convert", "models.depth_anything",
+    "models.dinov2", "models.dpt", "models.resnet_pose", "ops.attention",
+    "ops.augment", "ops.flash_attention", "ops.quaternion", "ops.resize",
+    "serving.engine", "train.depth_task", "train.loop", "train.optim",
+    "train.pose_task", "utils.cbuild", "utils.experiment",
 )
 
 _PROBE = f"""
@@ -62,6 +63,31 @@ with tempfile.TemporaryDirectory() as tmp:
                          ["model=large", "model.encoder_lr=1e-5"])
     config.snapshot(cfg, os.path.join(tmp, "snap"))
     assert cfg.model.encoder_lr == 1e-5
+
+    # Pose training end to end, and one vitg block (SwiGLU, 24 heads).
+    import json, torch
+    from {PORT}.cli import train_pose
+    from {PORT}.models import dinov2
+    os.environ["E3D_CONFIG_ROOT"] = os.path.join(os.getcwd(), "configs")
+    os.environ["E3D_RESULTS_DIR"] = os.path.join(tmp, "res")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        train_pose.main([f"dataset.data_dir={{root}}",
+                         f"dataset.train_list={{root}}/train.txt",
+                         f"dataset.val_list={{root}}/val.txt",
+                         f"dataset.test_list={{root}}/test.txt",
+                         "dataset.batch_size=1", "dataset.num_workers=1",
+                         "dataset.size=64", "trainer.max_epochs=1",
+                         "++trainer.max_steps=1", "--device", "cpu"])
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(tmp, "res", "pose_results.json")) as f:
+        assert json.load(f)["overall_metrics"]
+    arch = dinov2.VIT_ARCHS["vitg"]
+    block = dinov2.Block(arch["embed_dim"], arch["num_heads"], arch["ffn"])
+    out = block(torch.randn(1, 5, arch["embed_dim"]))
+    assert out.shape == (1, 5, 1536) and bool(torch.isfinite(out).all())
 """
 
 

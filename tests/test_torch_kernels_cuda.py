@@ -44,7 +44,8 @@ def _packed_qkv(b, n, h, d, seed, card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 130, 3, 32), (2, 200, 4, 64),
-                                   (1, 37, 2, 64), (3, 64, 5, 32)])
+                                   (1, 37, 2, 64), (3, 64, 5, 32),
+                                   (2, 1370, 24, 64)])
 def test_kernel_matches_plain(shape, card):
     q, k, v = _packed_qkv(*shape, seed=sum(shape), card=card)
     before = flash_attention.launches
@@ -114,11 +115,12 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
             / ref.float().abs().max()).item()
 
 
-# vitl's shape (a ragged last 128-key block), an exact multiple of the
-# tiles, one shorter than a tile, an odd B*H at D 32, and others.
-BWD_SHAPES = [(8, 1370, 16, 64), (2, 256, 4, 64), (1, 50, 2, 64),
-              (3, 130, 5, 32), (2, 128, 4, 64), (1, 37, 2, 64),
-              (2, 200, 3, 64)]
+# vitl's shape (a ragged last 128-key block), vitg's (24 heads), an exact
+# multiple of the tiles, one shorter than a tile, an odd B*H at D 32, and
+# others.
+BWD_SHAPES = [(8, 1370, 16, 64), (2, 1370, 24, 64), (2, 256, 4, 64),
+              (1, 50, 2, 64), (3, 130, 5, 32), (2, 128, 4, 64),
+              (1, 37, 2, 64), (2, 200, 3, 64)]
 
 
 @pytest.mark.cuda
@@ -400,17 +402,19 @@ def _variant_counter(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (2, 130, 3, 32),
-                                   (3, 50, 4, 64), (1, 37, 2, 32)])
+@pytest.mark.parametrize("shape", [(8, 1370, 16, 64), (8, 1370, 24, 64),
+                                   (2, 130, 3, 32), (3, 50, 4, 64),
+                                   (1, 37, 2, 32)])
 def test_forward_variants_match_plain_and_k1(shape, variant, card):
     """K1, K4 and K5 (both schedules) against the plain version, and K4
     and K5 against K1: the same function, but K1 sums in another order
     (its softmax scales each score by one fma and takes ex2.approx; K4's
     tiles are 64 queries), so not the same bits. All round O to bf16 from
     f32 sums: O within max|O_K1| / 64 (two to four bf16 steps of the
-    largest output), LSE within 1e-3. The shapes cover vitl's, D 32, a
-    ragged N shorter than a tile, and an odd H whose head pairs straddle
-    batch rows (2, 130, 3, 32)."""
+    largest output), LSE within 1e-3. The shapes cover vitl's, vitg's (24
+    heads, B*H = 192 for K5's head blocks and K4's pairs), D 32, a ragged
+    N shorter than a tile, and an odd H whose head pairs straddle batch
+    rows (2, 130, 3, 32)."""
     q, k, v = _packed_qkv(*shape, seed=sum(shape) + 7, card=card)
     counter = _variant_counter(variant)
     before = counter.launches
@@ -604,3 +608,58 @@ def test_lerp_resize_dispatch_and_refusals(card, monkeypatch):
     assert torch.equal(y, tres.lerp_resize(
         xt.contiguous(memory_format=torch.channels_last), (11, 11)))
     assert _ulp_ok(y, tres.lerp_resize_reference(xt, (11, 11)))
+
+
+@pytest.mark.cuda
+def test_pose_train_step_on_card_matches_cpu(card):
+    """One ``PoseTask.train_step`` ('32-true', TF32 off, dropout off) from
+    the same weights and batch on the card and on the CPU. cuDNN and the
+    CPU's convolutions sum in other orders: the loss within 1e-4
+    relative; the clipped gradient (all parameters) within 1e-2 in
+    relative norm (BatchNorm's backward reduces in f32 on the card and in
+    f64 on the CPU, and random weights amplify the difference: 4.1e-3 on
+    this batch, where TF32 puts the card's gradient 0.1 from an f64 one,
+    as ``chip_smoke.py``'s pose parity phase prints); the running
+    statistics within 1e-4 relative and 1e-5 absolute. Adam's
+    first step moves every element by about +-lr, so the parameters agree
+    to 2 lr (an element whose gradient is at rounding level may go either
+    way) and at most 1% of them differ by more than 1e-6 lr; then the
+    eval-mode poses of the updated nets within 1e-3."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train.pose_task import PoseTask
+
+    gen = torch.Generator().manual_seed(0)
+    batch = {"input": torch.randn((8, 8, 64, 64), generator=gen),
+             "target": torch.randn((8, 7), generator=gen)}
+    args = dict(dropout=False, cycle_momentum=True, total_steps=10)
+    cpu_task = PoseTask(device="cpu", **args)
+    cpu = cpu_task.init_state(seed=0)
+    gpu_task = PoseTask(device=card, **args)
+    gpu = gpu_task.init_state(weights={
+        k: v.clone() for k, v in cpu.model.state_dict().items()})
+    tf32 = torch.backends.cudnn.allow_tf32
+    cpu, cpu_m = cpu_task.train_step(cpu, batch)
+    gpu, gpu_m = gpu_task.train_step(gpu, batch)
+    assert torch.backends.cudnn.allow_tf32 == tf32  # restored
+    _, cpu_pred = cpu_task.eval_step(cpu, batch)
+    _, gpu_pred = gpu_task.eval_step(gpu, batch)
+    assert abs(gpu_m["loss"].item() - cpu_m["loss"].item()) <= \
+        1e-4 * abs(cpu_m["loss"].item())
+    g_cpu = torch.cat([p.grad.flatten() for p in cpu.model.parameters()])
+    g_gpu = torch.cat([p.grad.flatten().cpu()
+                       for p in gpu.model.parameters()])
+    assert (g_gpu - g_cpu).norm() <= 1e-2 * g_cpu.norm()
+    lr0 = float(cpu_task.lr_table()[0])
+    flipped = total = 0
+    for (name, p_cpu), p_gpu in zip(cpu.model.named_parameters(),
+                                    gpu.model.parameters()):
+        diff = (p_gpu.detach().cpu() - p_cpu.detach()).abs()
+        assert diff.max().item() <= 2.0 * lr0 * 1.01 + 1e-7, name
+        flipped += int((diff > 1e-6 * lr0 + 1e-8).sum())
+        total += diff.numel()
+    assert flipped <= 0.01 * total, (flipped, total)
+    sd_cpu, sd_gpu = cpu.model.state_dict(), gpu.model.state_dict()
+    for key in sd_cpu:
+        if key.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(sd_gpu[key].cpu(), sd_cpu[key],
+                                       rtol=1e-4, atol=1e-5, msg=key)
+    assert (gpu_pred.cpu() - cpu_pred).abs().max().item() <= 1e-3
