@@ -60,7 +60,20 @@ port's paths at vitl width with seeded random weights:
   tests), the test JSON's ATE/RTE/ROTE finite, no attention kernel or K6
   launched, ms per step, pairs/s, peak memory and a profiled step's idle
   share; one more step in bf16-mixed; and one ``PoseTask.train_step`` on
-  the card against the CPU from the same weights and batch.
+  the card against the CPU from the same weights and batch;
+- reconstruction (phase "recon"): (a) ``cli.pointcloud.main`` at the
+  reference's size: a synthetic colon (a cylinder of radius 1 m seen from
+  its axis) of 64 frames of 475x475 with exact 16-bit depth, fused,
+  voxel-downsampled (0.01 m) and meshed at Poisson depth 9 (512^3) on
+  the card; the points on the cylinder, the mesh a tube of radius ~1,
+  the card's mesh against the CPU's of the same points, every stage's
+  time (device stages on CUDA events), peak memory, no kernel launched;
+  (b) ``cli.pointcloud_model.main --encoder vitl`` on the infer CLI
+  phase's 32 frames (K1 24 a frame; the clouds by the video rule against
+  the plain f32 model's maps); (c) ``eval_depth_offline``,
+  ``calc_metrics`` and ``calc_stats`` on that tree, each on the card and
+  on the CPU with equal results, and ``video_to_images`` on the video
+  phase's AVI (frames byte-equal to its JPEGs).
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -95,7 +108,7 @@ N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
 LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize",
              "host/jpegcodec", "host/container", "host/pngdec",
-             "host/tiffdec"]
+             "host/tiffdec", "host/meshing"]
 JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
            "depth_and_pose_estimation_tpu")
 JAX_FLASH = f"{JAX_PKG}/ops/flash_attention.py"
@@ -2041,6 +2054,347 @@ def phase_pose_parity() -> None:
                              "tolerance of the CPU's")
 
 
+# ---------------------------------------------------------- reconstruction
+
+# A synthetic colon at SimCol's frame size: a cylinder of radius 1 m seen
+# from its axis (tests/test_recon_geometric.py), 64 frames stepping along
+# it; cut from a procedure's 601-1201 frames.
+RECON_FRAMES = 64
+RECON_STEP = 0.05       # m between camera positions along the axis
+RECON_CAM = (156.0, 156.0, 237.0, 237.0)  # fx, fy, cx, cy
+R_CYL = 1.0
+MESH_DEPTH = 9          # 512^3, the reference's Poisson depth
+VOXEL = 0.01
+
+
+def _cylinder_tree(tmp: str) -> str:
+    """SyntheticColon_I/Frames_S1 (RGB frames), Frames_S1_OP (exact
+    z-depth of the cylinder as 16-bit mm PNGs), the poses (identity
+    orientation, positions along the axis) and a ``cam.txt``."""
+    import os
+
+    import numpy as np
+
+    imageio = importlib.import_module(f"{PKG}.media.imageio")
+    fx, fy, cx, cy = RECON_CAM
+    root = os.path.join(tmp, "cylinder")
+    colon = os.path.join(root, "SyntheticColon_I")
+    frames, op = (os.path.join(colon, d) for d in ("Frames_S1",
+                                                   "Frames_S1_OP"))
+    os.makedirs(frames)
+    os.makedirs(op)
+    v, u = np.mgrid[0:FRAME_HW[0], 0:FRAME_HW[1]].astype(np.float64)
+    radial = np.maximum(np.hypot((u - cx) / fx, (v - cy) / fy), 1e-6)
+    # Rounded to the millimetre: the points then lie within 0.5 mm x
+    # radial (<= 2.15 at the corners) of the surface.
+    depth_mm = np.round(np.clip(R_CYL / radial * 1000.0, 0, 65535)).astype(
+        np.uint16)
+    rng = np.random.default_rng(51)
+    for i in range(RECON_FRAMES):
+        imageio.write_png(os.path.join(frames, f"FrameBuffer_{i:04d}.png"),
+                          rng.integers(0, 256, (*FRAME_HW, 3),
+                                       dtype=np.uint8))
+        imageio.write_png(os.path.join(op, f"Depth_{i:04d}.png"), depth_mm)
+    z = np.arange(RECON_FRAMES) * RECON_STEP
+    np.savetxt(os.path.join(colon, "SavedPosition_S1.txt"),
+               np.stack([0 * z, 0 * z, z], axis=1))
+    np.savetxt(os.path.join(colon, "SavedRotationQuaternion_S1.txt"),
+               np.tile([0.0, 0.0, 0.0, 1.0], (RECON_FRAMES, 1)))
+    np.savetxt(os.path.join(colon, "cam.txt"),
+               np.array([[fx, 0, cx, 0, fy, cy, 0, 0, 1]]))
+    return root
+
+
+def _mesh_distances(a, b):
+    """Largest distance from a vertex of ``a`` to ``b`` and back."""
+    from scipy.spatial import cKDTree
+
+    return (float(cKDTree(b).query(a)[0].max()),
+            float(cKDTree(a).query(b)[0].max()))
+
+
+def phase_recon(tmp: str, smi: str) -> dict[str, int]:
+    """(a) ``cli.pointcloud.main`` at the reference's size on the card:
+    64 frames of 475x475 of a synthetic colon, ``--mesh-depth 9`` (512^3)
+    and ``--voxel-size 0.01``. The fused points lie on the cylinder, the
+    mesh is a tube of radius ~1 (the JAX package's geometric rule), and
+    the card's mesh matches the CPU's mesh of the same points (vertex
+    counts within 1%, every vertex within 0.05 of a grid spacing of the
+    other mesh, both ways). Prints the stages, device work on the card's
+    clock. No kernel of the port runs. Returns the launches."""
+    import os
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    pointcloud = importlib.import_module(f"{PKG}.cli.pointcloud")
+    recon = importlib.import_module(f"{PKG}.recon")
+    rnative = importlib.import_module(f"{PKG}.recon.native")
+    poisson = importlib.import_module(f"{PKG}.recon.poisson")
+
+    t0 = time.perf_counter()
+    root = _cylinder_tree(tmp)
+    tree_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    _video_counts(fa, rz, zero=True)
+    # Twice: the first run pays cuFFT's plans and the first launches of
+    # every kernel it uses, as a user's single run does; the second shows
+    # the steady stage times. Both outputs must be equal.
+    runs = []
+    for i in range(2):
+        out = os.path.join(tmp, f"recon_out{i}")
+        result, _ = _captured(pointcloud.main, [
+            "-i", root, "-o", out, "--mesh-depth", str(MESH_DEPTH),
+            "--voxel-size", str(VOXEL)])
+        runs.append(result)
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grid = 1 << MESH_DEPTH
+    for name in ("combined_point_cloud.ply", "combined_mesh.ply"):
+        with open(os.path.join(tmp, "recon_out0", name), "rb") as f0, \
+                open(os.path.join(out, name), "rb") as f1:
+            if f0.read() != f1.read():
+                raise AssertionError(f"recon (a): two runs wrote two {name}")
+    print(f"recon (a) pointcloud, {RECON_FRAMES} frames of {FRAME_HW}, "
+          f"voxel {VOXEL} m, mesh depth {MESH_DEPTH} ({grid}^3), {smi}: "
+          f"{result['points_before']} points before the voxel grid, "
+          f"{result['points_after']} after; {result['verts']} vertices, "
+          f"{result['tris']} triangles (both runs' files byte-equal); "
+          f"main() {runs[0]['seconds']:.2f} s cold, {result['seconds']:.2f} "
+          f"s warm (tree written in {tree_s:.2f} s before); peak device "
+          f"memory {peak:.2f} GiB ({held:.2f} GiB held before); launches "
+          f"over both runs {counts}")
+    print(f"  cuts: {RECON_FRAMES} frames of a procedure's 601-1201, "
+          f"{RECON_STEP} m apart on a straight path with one orientation; "
+          "exact depth of a cylinder in place of a model's, rounded to the "
+          "mm; random colour; voxel size and Poisson depth the reference's")
+    host = ("normals", "readback", "mesher", "prune")
+    for label, run in (("cold", runs[0]), ("warm", result)):
+        stages = run["stages"]
+        print(f"  {label}: backprojection "
+              f"{stages['backprojection'] / RECON_FRAMES:.4f} ms/frame "
+              "(card); " + "; ".join(
+                  f"{k} {v:.2f} ms ({'host' if k in host else 'card'})"
+                  for k, v in stages.items() if k != "backprojection"))
+    if counts != _want():
+        raise AssertionError(f"recon (a): launches {counts}")
+
+    pc = recon.read_ply(os.path.join(out, "combined_point_cloud.ply"))
+    points = pc["points"]
+    radii = np.hypot(points[:, 0], points[:, 1])
+    r_err = float(np.abs(radii - R_CYL).max())
+    mesh = recon.read_ply(os.path.join(out, "combined_mesh.ply"))
+    verts = mesh["points"]
+    z = points[:, 2]
+    zmid = (verts[:, 2] > z.min() + 1.0) & (verts[:, 2] < z.max() - 1.0)
+    med = float(np.median(np.hypot(verts[zmid, 0], verts[zmid, 1])))
+    print(f"  fused points' radius within {r_err:.5f} m of {R_CYL} "
+          f"(tolerance 2e-3); mesh median radius {med:.5f} m over "
+          f"{int(zmid.sum())} interior vertices (tolerance 0.12)")
+    if not (r_err <= 2e-3 and zmid.sum() > 100
+            and abs(med - R_CYL) < 0.12):
+        raise AssertionError("recon (a): the cylinder is not reconstructed")
+
+    # The CPU's mesh of the same points: normals as main() takes them.
+    normals = rnative.estimate_normals(
+        points, radius=0.1, max_nn=30,
+        orient_toward=points.mean(axis=0).astype(np.float32))
+    t0 = time.perf_counter()
+    cv, _ = poisson.poisson_mesh(points, -normals, grid_depth=MESH_DEPTH,
+                                 density_percentile=5.0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    extent = float((points.max(0) - points.min(0)).max()) * 1.1
+    spacing = extent / (grid - 1)
+    d_gc, d_cg = _mesh_distances(verts, cv)
+    print(f"  card mesh vs the CPU's ({cpu_s:.2f} s on the host): "
+          f"{len(verts)} vs {len(cv)} vertices; largest distance card->CPU "
+          f"{d_gc / spacing:.4f}, CPU->card {d_cg / spacing:.4f} grid "
+          f"spacings (tolerance 0.05; spacing {spacing * 1e3:.3f} mm)")
+    if not (abs(len(verts) - len(cv)) <= 0.01 * len(cv)
+            and max(d_gc, d_cg) <= 0.05 * spacing):
+        raise AssertionError("recon (a): the card's mesh is not the CPU's")
+    return counts
+
+
+def phase_recon_model(root: str, plain, f32, tmp: str, smi: str
+                      ) -> dict[str, int]:
+    """(b) ``cli.pointcloud_model.main --encoder vitl`` at 518 px on the
+    infer CLI phase's 32 frames: K1 24 launches a frame, all others 0;
+    every per-frame cloud no further from the plain f32 model's cloud
+    than 1.5x the plain bf16 model's (``plain``, ``f32``: that phase's
+    maps of the same seeded weights)."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    pcm = importlib.import_module(f"{PKG}.cli.pointcloud_model")
+    recon = importlib.import_module(f"{PKG}.recon")
+
+    # A view of the tree holding its 32 frames under distinct names: the
+    # glob of pointcloud_model (Frames_*/FrameBuffer_*.png, the
+    # reference's) would also take the infer phase's renderings in
+    # Frames_*_OP, and it writes one PLY per frame name, so the two
+    # procedures' FrameBuffer_0000 would share one file.
+    paths = sorted(glob.glob(os.path.join(
+        root, "SyntheticColon_I", "Frames_S[12]", "FrameBuffer_*.png")))
+    view = os.path.join(tmp, "view_model")
+    os.makedirs(os.path.join(view, "SyntheticColon_I", "Frames_S1"))
+    os.symlink(os.path.join(root, "UnityCam"), os.path.join(view,
+                                                            "UnityCam"))
+    names = []
+    for i, path in enumerate(paths):
+        names.append(f"FrameBuffer_{i:04d}")
+        os.symlink(path, os.path.join(view, "SyntheticColon_I", "Frames_S1",
+                                      names[-1] + ".png"))
+    out = os.path.join(tmp, "clouds")
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    result, _ = _captured(pcm.main, ["--encoder", "vitl", "-i", view,
+                                     "-o", out])
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    want = _want(K1=BLOCKS * CLI_FRAMES)
+    print(f"recon (b) pointcloud_model (vitl, 518 px), {result['frames']} "
+          f"frames of {FRAME_HW}: {result['seconds']:.2f} s through main() "
+          f"(model init, decode, one frame at a time, back-projection, PLY "
+          f"writes): {result['frames'] / result['seconds']:.2f} frames/s; "
+          f"in infer_image {result['model_seconds']:.2f} s; {smi}; "
+          f"launches {counts} (want {want})")
+    if counts != want or result["frames"] != CLI_FRAMES:
+        raise AssertionError(f"recon (b): launches {counts}, want {want}")
+
+    cam = recon.load_intrinsics(os.path.join(root, "UnityCam", "cam.txt"))
+
+    def cloud(depth):
+        pts, _, valid = recon.backproject_depth(
+            torch.from_numpy(depth).cuda(), *cam, depth_scale=1.0,
+            depth_trunc=21.0)
+        return pts[valid].cpu().numpy()
+
+    d_kf, d_pf = [], []
+    for i, (p, name) in enumerate(zip(paths, names)):
+        got = recon.read_ply(os.path.join(out, name + ".ply"))["points"]
+        ref, yard = cloud(f32[i]), cloud(plain[i])
+        if got.shape != ref.shape:
+            raise AssertionError(f"recon (b): {p}: {got.shape} points, "
+                                 f"want {ref.shape}")
+        d_kf.append(np.linalg.norm(got - ref, axis=1).mean())
+        d_pf.append(np.linalg.norm(yard - ref, axis=1).mean())
+    print(f"  clouds vs plain f32: mean {np.mean(d_kf):.5f} m (plain bf16 "
+          f"vs f32: {np.mean(d_pf):.5f} m; rule: at most 1.5x)")
+    if not np.mean(d_kf) <= 1.5 * np.mean(d_pf):
+        raise AssertionError("recon (b): clouds further from f32 than the "
+                             "plain bf16 model allows")
+    return counts
+
+
+def _same(label: str, card, cpu, rtol: float = 1e-6) -> None:
+    """Card and CPU results (nested dicts of floats or arrays) equal to
+    ``rtol``: the card sums in other orders."""
+    import numpy as np
+
+    if isinstance(cpu, dict):
+        if set(card) != set(cpu):
+            raise AssertionError(f"{label}: keys {set(card)} vs {set(cpu)}")
+        for k in cpu:
+            _same(f"{label}/{k}", card[k], cpu[k], rtol)
+        return
+    if not np.allclose(card, cpu, rtol=rtol, atol=1e-9, equal_nan=True):
+        raise AssertionError(f"{label}: card {card} vs CPU {cpu}")
+
+
+def phase_recon_tools(root: str, tmp: str, smi: str) -> None:
+    """(c) The offline tools on the infer CLI phase's tree, each on the
+    card and on the CPU: ``eval_depth_offline --no-strict`` on its
+    colourised side-by-side renderings (as Frames_S5/S10 of a view of
+    the tree), ``calc_metrics`` on its ``.npy`` maps written as 16-bit
+    mm PNGs, ``calc_stats`` on its training split at 518 px; and
+    ``video_to_images`` on the video phase's AVI (frames byte-equal to the
+    stored JPEGs)."""
+    import glob
+    import os
+
+    import numpy as np
+
+    imageio = importlib.import_module(f"{PKG}.media.imageio")
+    native = importlib.import_module(f"{PKG}.media.native")
+    tools = {name: importlib.import_module(f"{PKG}.cli.{name}")
+             for name in ("eval_depth_offline", "calc_metrics", "calc_stats",
+                          "video_to_images")}
+    colon = os.path.join(root, "SyntheticColon_I")
+    view_eval = os.path.join(tmp, "view_eval", "SyntheticColon_I")
+    view_cm = os.path.join(tmp, "view_metrics", "SyntheticColon_I")
+    for src, dst in (("S1", "S5"), ("S2", "S10")):
+        os.makedirs(view_eval, exist_ok=True)
+        os.symlink(os.path.join(colon, f"Frames_{src}"),
+                   os.path.join(view_eval, f"Frames_{dst}"))
+        os.symlink(os.path.join(colon, f"Frames_{src}_OP"),
+                   os.path.join(view_eval, f"Frames_{dst}_OP"))
+        # calc_metrics' view: the ground truth's Depth_*.png, and the
+        # infer phase's maps as 16-bit mm PNGs of the same names.
+        for sub in (f"Frames_{src}", f"Frames_{src}_OP"):
+            os.makedirs(os.path.join(view_cm, sub))
+        for npy in glob.glob(os.path.join(colon, f"Frames_{src}_OP",
+                                          "FrameBuffer_*.npy")):
+            mm = np.clip(np.load(npy) * 1000.0, 0, 65535).astype(np.uint16)
+            name = os.path.basename(npy)[:-4].replace("FrameBuffer",
+                                                      "Depth") + ".png"
+            os.symlink(os.path.join(colon, f"Frames_{src}", name),
+                       os.path.join(view_cm, f"Frames_{src}", name))
+            imageio.write_png(os.path.join(view_cm, f"Frames_{src}_OP",
+                                           name), mm)
+
+    runs = {
+        "eval_depth_offline": ["--input-path", os.path.dirname(view_eval),
+                               "--no-strict"],
+        "calc_metrics": ["--dataset-root", os.path.dirname(view_cm)],
+        "calc_stats": ["--data-dir", root, "--train-list",
+                       os.path.join(root, "train.txt"), "--size", "518",
+                       "--batch-size", str(BATCH)],
+    }
+    results = {}
+    for name, args in runs.items():
+        t0 = time.perf_counter()
+        card, _ = _captured(tools[name].main, args)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu, _ = _captured(tools[name].main, args + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        _same(f"recon (c) {name}", card, cpu)
+        results[name] = card
+        print(f"recon (c) {name}: card {card_s:.2f} s, CPU {cpu_s:.2f} s "
+              f"through main() ({smi}); results equal within 1e-6 relative")
+    evaluated = [k for k in results["eval_depth_offline"] if k != "overall"]
+    if (len(evaluated) != 2 or "overall" not in results["calc_metrics"]
+            or not results["calc_stats"]["valid_px"]):
+        raise AssertionError(f"recon (c): tools evaluated too little: "
+                             f"{results}")
+
+    avi = os.path.join(tmp, "in.avi")
+    _video_input(avi, seed=5)  # the video phase's AVI, byte for byte
+    frames_dir = os.path.join(tmp, "frames")
+    n, _ = _captured(tools["video_to_images"].main,
+                     ["--video_path", avi, "--output_dir", frames_dir])
+    with native.VideoReader(avi) as r:
+        same = n == r.num_frames == VIDEO_FRAMES and all(
+            open(os.path.join(frames_dir, f"frame_{i:04d}.jpg"), "rb").read()
+            == r.frame_bytes(i) for i in range(n))
+    print(f"recon (c) video_to_images: {n} frames, byte-equal to the "
+          f"stored JPEGs: {same}")
+    if not same:
+        raise AssertionError("recon (c): video_to_images frames differ")
+
+
 def main() -> int:
     import torch
 
@@ -2111,6 +2465,16 @@ def main() -> int:
         train_cli, ckpt_dir, cli_data = phase_train_cli(tmp, smi)
         torch.cuda.empty_cache()
         test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+        torch.cuda.empty_cache()
+
+        # Reconstruction: (a) fusion and the depth-9 mesh of a synthetic
+        # colon; (b) per-frame model clouds and (c) the offline tools on
+        # the infer CLI phase's tree.
+        recon_pc = phase_recon(tmp, smi)
+        torch.cuda.empty_cache()
+        infer_root = os.path.join(tmp, "infer_vitl")
+        recon_model = phase_recon_model(infer_root, plain, f32, tmp, smi)
+        phase_recon_tools(infer_root, tmp, smi)
     torch.cuda.empty_cache()
 
     # The giant encoder (vitg) and the pose path.
@@ -2127,7 +2491,8 @@ def main() -> int:
     cli_paths = {"infer": infer, "serve_cli": served,
                  "train_cli": train_cli, "test_cli": test_cli,
                  "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
-                 "pose": pose}
+                 "pose": pose, "pointcloud": recon_pc,
+                 "pointcloud_model": recon_model}
 
     k1["launches"] = serve_k1
     k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"],

@@ -10,6 +10,10 @@ The JAX package's ``data/io.py`` with the port's own readers:
 - C3VD pairs ``*_color.png`` / ``[0-9]*_*.png`` with ``{n}_depth.tiff``
   (zero-pad fallback); colour goes BGR->RGB as cv2 reads it, uint16
   colour is cut to uint8.
+- ``imread_unchanged``, ``imread_grayscale`` and ``imread_anydepth`` read
+  a PNG as ``cv2.imread`` does with ``IMREAD_UNCHANGED``,
+  ``IMREAD_GRAYSCALE`` and ``IMREAD_ANYDEPTH``: cv2's channel order
+  (BGR, BGRA) and libpng's RGB->gray, which cv2's PNG reader asks for.
 
 PNGs go through ``data/native`` (the port's copy of ``pngdec.cpp``),
 JPEGs through ``media/native`` and TIFFs through ``data/native``
@@ -253,3 +257,63 @@ def load_pose_files(data_dir: str, folder: str
     if positions.shape[1] != 3 or orientations.shape[1] != 4:
         return None
     return positions.astype(np.float32), orientations.astype(np.float32)
+
+
+# libpng's RGB->gray (png_set_rgb_to_gray with cv2's 0.299 / 0.587, as
+# 15-bit fixed-point coefficients that truncate): 8-bit samples truncate,
+# 16-bit ones round.
+_GRAY_COEFFS = (9797, 19234, 3737)
+
+
+def _png_gray(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG (RGB(A) order) -> gray at its own depth, as libpng
+    converts it for cv2; gray and gray+alpha keep their gray channel."""
+    if img.ndim == 2:
+        return img
+    if img.shape[2] == 2:
+        return np.ascontiguousarray(img[:, :, 0])
+    r, g, b = (img[:, :, c].astype(np.int64) for c in range(3))
+    cr, cg, cb = _GRAY_COEFFS
+    rnd = 1 << 14 if img.dtype == np.uint16 else 0
+    return ((cr * r + cg * g + cb * b + rnd) >> 15).astype(img.dtype)
+
+
+def _png_only(path: str) -> None:
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"{path}: the port reads only PNGs here "
+                         "(cv2.imread's flags are matched for PNG)")
+
+
+def imread_unchanged(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``: the file's depth and
+    channels in cv2's order: gray (H, W), BGR (H, W, 3), BGRA (H, W, 4);
+    gray+alpha becomes BGRA with the gray replicated. A baseline JPEG
+    comes back BGR."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        return np.ascontiguousarray(_decode_jpeg(path)[:, :, ::-1])
+    _png_only(path)
+    img = _decode_png(path)
+    if img.ndim == 2:
+        return img
+    if img.shape[2] == 2:
+        gray, alpha = img[:, :, 0], img[:, :, 1]
+        return np.ascontiguousarray(np.stack([gray, gray, gray, alpha], -1))
+    order = [2, 1, 0, 3][:img.shape[2]]
+    return np.ascontiguousarray(img[:, :, order])
+
+
+def imread_grayscale(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``: uint8 (H, W); colour
+    through libpng's RGB->gray, 16-bit samples cut to 8 (``>> 8``)."""
+    _png_only(path)
+    gray = _png_gray(_decode_png(path))
+    if gray.dtype == np.uint16:
+        gray = (gray >> 8).astype(np.uint8)
+    return gray
+
+
+def imread_anydepth(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_ANYDEPTH)``: gray (H, W) at the file's
+    depth (uint8 or uint16); colour through libpng's RGB->gray."""
+    _png_only(path)
+    return _png_gray(_decode_png(path))

@@ -347,3 +347,37 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int],
     if channels_last and x.dim() >= 3:
         return x.index_select(-3, rows).index_select(-2, cols)
     return x.index_select(-2, rows).index_select(-1, cols)
+
+
+def _cv2_linear_taps(n_in: int, n_out: int):
+    """cv2.INTER_LINEAR's taps along one axis: half-pixel centres, the
+    position and its fraction in f64 (the weights rounded to f32 last),
+    clamped at both borders."""
+    scale = 1.0 / (n_out / n_in)
+    pos = (np.arange(n_out) + 0.5) * scale - 0.5
+    i0 = np.floor(pos).astype(np.int64)
+    frac = (pos - i0).astype(np.float32)
+    low = i0 < 0
+    i0[low], frac[low] = 0, 0
+    high = i0 >= n_in - 1
+    i0[high], frac[high] = n_in - 1, 0
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    return i0, i1, (np.float32(1) - frac).astype(np.float32), frac
+
+
+def resize_linear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of the last two axes with cv2.INTER_LINEAR
+    semantics for float images (half-pixel centres, no antialias, the
+    taps' positions computed as cv2 computes them): rows first, then
+    columns, in f32."""
+    (h_in, w_in), (h_out, w_out) = x.shape[-2:], out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return x.clone()
+    x = x.to(torch.float32)
+    for axis, n_in, n_out in ((-1, w_in, w_out), (-2, h_in, h_out)):
+        i0, i1, a0, a1 = (torch.from_numpy(t).to(x.device)
+                          for t in _cv2_linear_taps(n_in, n_out))
+        shape = (-1, 1) if axis == -2 else (-1,)
+        x = (x.index_select(axis, i0) * a0.view(shape)
+             + x.index_select(axis, i1) * a1.view(shape))
+    return x

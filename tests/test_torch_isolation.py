@@ -1,6 +1,8 @@
 """The port imports neither JAX nor any module of the JAX package, nor
 PyYAML, cv2 or PIL (its own YAML subset, codecs and writers take their
-place); ``train_pose --device cpu`` and a vitg block run without them."""
+place); ``train_pose --device cpu``, a vitg block, ``pointcloud --device
+cpu`` (fusion, the port's own mesher build, the FFT Poisson mesh) and
+``video_to_images`` with a YAML config run without them."""
 
 import os
 import subprocess
@@ -13,8 +15,11 @@ JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
 
 # Every module of the port; the probe fails if one is missing or leaks.
 MODULES = (
-    "cli.convert_video", "cli.infer", "cli.serve", "cli.test_depth",
+    "cli.calc_metrics", "cli.calc_stats", "cli.convert_video",
+    "cli.eval_depth_offline", "cli.infer", "cli.pointcloud",
+    "cli.pointcloud_model", "cli.serve", "cli.test_depth",
     "cli.train_depth", "cli.train_pose", "cli.video_depth",
+    "cli.video_to_images",
     "core.checkpoint", "core.config", "core.debug", "core.device",
     "core.dtypes", "core.logging", "core.metrics", "core.yamlsubset",
     "data.c3vd", "data.combined", "data.io", "data.loader", "data.native",
@@ -24,7 +29,8 @@ MODULES = (
     "media.video", "models.convert", "models.depth_anything",
     "models.dinov2", "models.dpt", "models.resnet_pose", "ops.attention",
     "ops.augment", "ops.flash_attention", "ops.quaternion", "ops.resize",
-    "serving.engine", "train.depth_task", "train.loop", "train.optim",
+    "recon", "recon.native", "recon.ply", "recon.pointcloud",
+    "recon.poisson", "recon.stages", "serving.engine", "train.depth_task", "train.loop", "train.optim",
     "train.pose_task", "utils.cbuild", "utils.experiment",
 )
 
@@ -88,6 +94,34 @@ with tempfile.TemporaryDirectory() as tmp:
     block = dinov2.Block(arch["embed_dim"], arch["num_heads"], arch["ffn"])
     out = block(torch.randn(1, 5, arch["embed_dim"]))
     assert out.shape == (1, 5, 1536) and bool(torch.isfinite(out).all())
+
+    # Reconstruction: the fixture's depths as predictions, fused and
+    # meshed on the CPU; frames of an AVI through a YAML config.
+    import glob, shutil
+    import numpy as np
+    from {PORT}.cli import pointcloud, video_to_images
+    from {PORT}.media import native as media_native
+    from {PORT}.recon import read_ply
+    rroot = synthetic.make_simcol_fixture(os.path.join(tmp, "r"), 1, 3, 32)
+    for d in glob.glob(os.path.join(rroot, "SyntheticColon_I", "Frames_S*",
+                                    "Depth_*.png")):
+        op = os.path.dirname(d) + "_OP"
+        os.makedirs(op, exist_ok=True)
+        shutil.copy(d, os.path.join(op, os.path.basename(d)))
+    res = pointcloud.main(["-i", rroot, "-o", os.path.join(tmp, "pc"),
+                           "--mesh-depth", "5", "--voxel-size", "0.005",
+                           "--device", "cpu"])
+    mesh = read_ply(os.path.join(tmp, "pc", "combined_mesh.ply"))
+    assert res["frames"] == 3 and len(mesh["points"]) == res["verts"] > 0
+    avi = os.path.join(tmp, "v.avi")
+    with media_native.VideoWriter(avi, 32, 16, fps=10.0) as w:
+        for i in range(3):
+            w.write_rgb(np.full((16, 32, 3), 40 * i, np.uint8))
+    cfg = os.path.join(tmp, "v.yaml")
+    with open(cfg, "w") as f:
+        f.write(f"video_path: {{avi}}\\noutput_dir: {{tmp}}/frames\\n"
+                "fps: null\\nstart_time: 0.0\\nend_time: null\\n")
+    assert video_to_images.main(["--config", cfg]) == 3
 """
 
 
