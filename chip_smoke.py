@@ -73,7 +73,20 @@ port's paths at vitl width with seeded random weights:
   the plain f32 model's maps); (c) ``eval_depth_offline``,
   ``calc_metrics`` and ``calc_stats`` on that tree, each on the card and
   on the CPU with equal results, and ``video_to_images`` on the video
-  phase's AVI (frames byte-equal to its JPEGs).
+  phase's AVI (frames byte-equal to its JPEGs);
+- the speed dials (phase "dials"): kernels Q1 and Q2 (``csrc/quant.cu``)
+  bit for bit against their plain versions at vitl's encoder sites and
+  two decoder convs, ``torch._int_mm`` against the CPU's and in both
+  operand layouts, the tap form of the int8 conv against the f64 plain
+  conv, each pass timed beside the bf16 GEMM or cuDNN conv it replaces;
+  then dynamic int8, static int8 (K = 2), token merging at 0.3 and both
+  at vitl 518 px, batch 8, through ``BatchedRunner`` (launches per
+  batch, device ms, maps against the plain f32 model by the rule of
+  ``DIAL_BOUND``, the merged forward repeated bit for bit), the auto
+  scope at batch 8 and 64, ``DepthServingEngine`` with calibration (and
+  a held single batch resolved without ``close()``), and
+  ``cli.infer.main`` once per dial on the infer phase's 32 frames. Every
+  other phase holds Q1 and Q2 to 0 launches.
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -106,7 +119,7 @@ FRAME_HW = (475, 475)   # SimCol frame size: 518 px network input, N = 1370
 BATCH = 8
 N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
-LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize",
+LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize", "quant",
              "host/jpegcodec", "host/container", "host/pngdec",
              "host/tiffdec", "host/meshing"]
 JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
@@ -533,31 +546,36 @@ def _check_maps(maps) -> None:
                                  f"[{m.min()}, {m.max()}]")
 
 
-def phase_serve(model, frames) -> int:
-    """The main path: vitl depth served by DepthServingEngine. Returns K1's
-    launches in this run."""
-    flash = importlib.import_module(f"{PKG}.ops.flash_attention")
+def phase_serve(model, frames) -> dict[str, int]:
+    """The main path: vitl depth served by DepthServingEngine. Returns
+    every kernel's launches in this run (K1 only: no dial is on)."""
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
     engine_mod = importlib.import_module(f"{PKG}.serving.engine")
 
     engine = engine_mod.DepthServingEngine(model, input_size=518,
                                            batch_size=BATCH)
-    flash.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
     t0 = time.perf_counter()
     futures = engine.submit_many(frames)
     maps = [f.result(timeout=600) for f in futures]
     engine.close()
     seconds = time.perf_counter() - t0
-    launches = flash.flash_attention.launches
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
     stats = engine.stats()
+    want = _want(K1=BLOCKS * stats["batches"])
     _check_maps(maps)
     print(f"serve: {len(maps)} frames of {FRAME_HW} in {stats['batches']} "
           f"batches, {seconds:.2f} s (first batch sets up the libraries); "
-          f"K1 launches {launches}; maps finite, in [0, 20]")
-    if stats["failed"] or stats["batches"] < 3 \
-            or launches != BLOCKS * stats["batches"]:
-        raise AssertionError(f"serve: stats {stats}, K1 launches {launches}"
-                             f" (want {BLOCKS} per batch)")
-    return launches
+          f"launches {counts}; maps finite, in [0, 20]")
+    if stats["failed"] or stats["batches"] < 3 or counts != want:
+        raise AssertionError(f"serve: stats {stats}, launches {counts}, "
+                             f"want {want} ({BLOCKS} K1 per batch)")
+    return counts
 
 
 def phase_plain(model, frames) -> None:
@@ -706,9 +724,13 @@ VIDEO_CONFIGS = {
 
 
 def _video_counts(fa, rz, zero: bool = False) -> dict[str, int]:
+    """Every kernel's launch count (zeroed first with ``zero``): the six
+    attention and resize kernels and the int8 passes Q1 and Q2."""
+    quant = importlib.import_module(f"{PKG}.ops.quant")
     fns = {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_fused,
            "K3": fa.flash_attention_bwd_split, "K4": fa.flash_attention_pair,
-           "K5": fa.flash_attention_heads, "K6": rz.lerp_resize}
+           "K5": fa.flash_attention_heads, "K6": rz.lerp_resize,
+           "Q1": quant.quantize_int8, "Q2": quant.dequantize_int32}
     if zero:
         for fn in fns.values():
             fn.launches = 0
@@ -896,7 +918,7 @@ def phase_video(model, smi: str) -> dict[str, dict[str, int]]:
             stats = result["engine"]
             n_b = stats["batches"]
             want = {k: v * n_b for k, v in per_batch.items()}
-            want.update(K2=0, K3=0)
+            want.update(K2=0, K3=0, Q1=0, Q2=0)
             if sorted(depths) != list(range(VIDEO_FRAMES)):
                 raise AssertionError(f"video [{cfg}]: depth maps of frames "
                                      f"{sorted(depths)}")
@@ -963,12 +985,6 @@ def phase_video(model, smi: str) -> dict[str, dict[str, int]]:
 # ------------------------------------------------------------- training
 
 
-def _reset_counts(fa) -> None:
-    fa.flash_attention.launches = 0
-    fa.flash_attention_bwd_fused.launches = 0
-    fa.flash_attention_bwd_split.launches = 0
-
-
 def _profiled(fn, iters: int, what: str) -> list:
     """``fn`` timed ``iters`` times on the host clock, then profiled."""
     import torch
@@ -989,12 +1005,6 @@ def _profiled(fn, iters: int, what: str) -> list:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return _print_profile(prof, wall_us, plain_wall_us, iters, what)
-
-
-def _counts(fa) -> dict[str, int]:
-    return {"K1": fa.flash_attention.launches,
-            "K2": fa.flash_attention_bwd_fused.launches,
-            "K3": fa.flash_attention_bwd_split.launches}
 
 
 def _bwd_name(fused: bool) -> str:
@@ -1140,6 +1150,7 @@ def phase_grads(data, encoder: str = "vitl", n_count: int = BATCH,
     import torch
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
     attn = importlib.import_module(f"{PKG}.ops.attention")
     da = importlib.import_module(f"{PKG}.models.depth_anything")
     dt = importlib.import_module(f"{PKG}.train.depth_task")
@@ -1173,11 +1184,11 @@ def phase_grads(data, encoder: str = "vitl", n_count: int = BATCH,
 
     bwd = _bwd_name(fa._BWD_FUSED)
     torch.cuda.synchronize()
-    _reset_counts(fa)
+    _video_counts(fa, rz, zero=True)
     counted = grads(n_count)
     torch.cuda.synchronize()
-    counts = _counts(fa)
-    want = {"K1": 2 * blocks, "K2": 0, "K3": 0, bwd: blocks}
+    counts = _video_counts(fa, rz)
+    want = _want(K1=2 * blocks, **{bwd: blocks})
     if counts != want:
         raise AssertionError(f"grads {encoder}: launches {counts}, want "
                              f"{want} (K1 forward and recompute)")
@@ -1237,6 +1248,7 @@ def _fit(data, fused: bool, max_steps=None):
     import torch
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
     dt = importlib.import_module(f"{PKG}.train.depth_task")
     loop = importlib.import_module(f"{PKG}.train.loop")
 
@@ -1248,7 +1260,7 @@ def _fit(data, fused: bool, max_steps=None):
         with tempfile.TemporaryDirectory() as tmp:
             log_dir = os.path.join(tmp, "log")
             torch.cuda.synchronize()
-            _reset_counts(fa)
+            _video_counts(fa, rz, zero=True)
             t0 = time.perf_counter()
             state = loop.fit_depth(task, data, max_epochs=1,
                                    log_dir=log_dir,
@@ -1257,7 +1269,7 @@ def _fit(data, fused: bool, max_steps=None):
                                    max_steps=max_steps)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            counts = _counts(fa)
+            counts = _video_counts(fa, rz)
             records = _read_log(log_dir)
     finally:
         fa._BWD_FUSED = knob
@@ -1280,8 +1292,8 @@ def phase_train(data, smi: str) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     n_mb = TRAIN_MICROBATCHES
-    want = {"K1": 2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES, "K2": 0,
-            "K3": 0, _bwd_name(fused): BLOCKS * n_mb}
+    want = _want(K1=2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES,
+                 **{_bwd_name(fused): BLOCKS * n_mb})
     steps = -(-n_mb // ACCUM)
     train = [r for r in records if "train_loss" in r]
     val = [r for r in records if "val_loss" in r]
@@ -1330,8 +1342,8 @@ def phase_train_other(data) -> dict:
         f"{PKG}.ops.flash_attention")._BWD_FUSED
     name = _bwd_name(fused)
     _, state, counts, records, seconds = _fit(data, fused=fused, max_steps=1)
-    want = {"K1": 2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES, "K2": 0,
-            "K3": 0, name: BLOCKS * ACCUM}
+    want = _want(K1=2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES,
+                 **{name: BLOCKS * ACCUM})
     loss = next(r["train_loss"] for r in records if "train_loss" in r)
     print(f"train on {name} (the other backward): {state.step} optimizer "
           f"step of {ACCUM} microbatches in {seconds:.2f} s, loss "
@@ -1404,7 +1416,7 @@ def _captured(fn, *args):
 
 def _want(**launches) -> dict[str, int]:
     return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5",
-                                            "K6")}
+                                            "K6", "Q1", "Q2")}
 
 
 def phase_codecs(smi: str) -> None:
@@ -2395,6 +2407,461 @@ def phase_recon_tools(root: str, tmp: str, smi: str) -> None:
         raise AssertionError("recon (c): video_to_images frames differ")
 
 
+# ------------------------------------------------------- the speed dials
+
+QUANT_SRC = f"{PKG}/csrc/quant.cu"
+JAX_QUANT = f"{JAX_PKG}/ops/quant.py"
+M_TOKENS = BATCH * 1370   # vitl, batch 8, 518 px: token rows of a GEMM
+LONG_ROW = 8192           # > csrc/quant.cu kShortMax: Q1's two-pass rows
+# The encoder's int8 sites at vitl: (name, N, K) of x (M, K) @ w (N, K)^T.
+ENC_SITES = [("qkv", 3072, 1024), ("proj", 1024, 1024),
+             ("fc1", 4096, 1024), ("fc2", 1024, 4096)]
+# The decoder's convs with both widths >= 128 at vitl (the JAX package's
+# QConv gate): projects 0-3, the stride-2 resize, layer1-4_rn, the
+# fusion blocks' 3 + 5 + 5 + 5 convs and output_conv1.
+DPT_SITES = 4 + 1 + 4 + 3 + 3 * 5 + 1
+# Two decoder convs at vitl, batch 8: the widest (the stride-2 resize,
+# 1024 -> 1024 at 37x37) and the largest (output_conv1, 256 -> 128 at
+# 296x296): (name, (B, H, W, C), Cout, stride).
+DPT_CONVS = [("resize_3", (BATCH, 37, 37, 1024), 1024, 2),
+             ("output_conv1", (BATCH, 296, 296, 256), 128, 1)]
+DIAL_FLAGS = {"int8": ["--int8"], "int8 static K=2": ["--int8",
+                                                      "--int8-calib", "2"],
+              "merge 0.3": ["--token-merge", "0.3"],
+              "int8 + merge 0.3": ["--int8", "--token-merge", "0.3"]}
+# A dial's maps are held to the JAX package's bound on their mean relative
+# distance from the plain f32 model's (int8 0.1, tests/test_quant_int8.py;
+# merging and both 0.5, tests/test_token_merge.py, test_quant_int8.py)
+# unless the plain bf16 model's own distance exceeds a tenth of it; then
+# to DIAL_MULTIPLE times that distance (fixed in PERF.md before the first
+# card run: random vitl weights amplify rounding).
+DIAL_BOUND = {"int8": 0.1, "int8 static K=2": 0.1, "merge 0.3": 0.5,
+              "int8 + merge 0.3": 0.5}
+DIAL_MULTIPLE = 25.0
+
+
+def _rel(maps, ref) -> float:
+    import numpy as np
+
+    return float(np.abs(maps - ref).mean() / np.abs(ref).mean())
+
+
+def _site_launches(dial: str) -> dict[str, int]:
+    """Per batch of 8 under the auto scope (all at batch 8): K1 once a
+    block; Q2 once a site, Q1 twice (activations and weights)."""
+    sites = 24 * 4 + DPT_SITES if dial.startswith("int8") else 0
+    return _want(K1=BLOCKS, Q1=2 * sites, Q2=sites)
+
+
+def phase_quant_kernels(smi: str) -> tuple[dict, dict]:
+    """Q1 and Q2 at vitl's int8 sites (batch 8, 518 px) against their
+    plain versions, bit for bit; torch._int_mm against the CPU's and in
+    both operand layouts; the tap form of the int8 conv against the f64
+    plain one; times of each pass beside the bf16 cuBLAS GEMM or cuDNN
+    conv it replaces. Returns the kernels' records."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    quant = importlib.import_module(f"{PKG}.ops.quant")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = {"Q1": 0.0, "Q2": 0.0}
+    q1_sites, q2_sites = {}, {}
+
+    def same(name, got, want):
+        d = (got.float() - want.float()).abs().max().item()
+        worst[name] = max(worst[name], d)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version by {d}")
+
+    def q1_bytes(r, k, size):
+        return r * k * size + r * k + r * 4
+
+    print(f"speed-dial kernels, vitl batch {BATCH} 518 px ({smi}):")
+    for site, n, k in ENC_SITES:
+        x = (torch.randn((M_TOKENS, k), generator=gen, device="cuda")
+             * 3).bfloat16()
+        w = torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5
+        bias = torch.randn(n, generator=gen, device="cuda")
+        xq, xs = quant.quantize_int8(x)
+        same("Q1", xq, quant.quantize_int8_reference(x)[0])
+        same("Q1", xs, quant.quantize_int8_reference(x)[1])
+        given = torch.tensor([4.0 / 127], device="cuda")
+        same("Q1", quant.quantize_int8(x, given)[0],
+             quant.quantize_int8_reference(x, given)[0])
+        wq, ws = quant.quantize_int8(w)
+        same("Q1", wq, quant.quantize_int8_reference(w)[0])
+        same("Q1", ws, quant.quantize_int8_reference(w)[1])
+        acc = quant.int_mm(xq, wq.t())
+        wkn = wq.t().contiguous()  # the same operand, row-major (K, N)
+        copy = quant.int_mm(xq, wkn)
+        cpu = torch._int_mm(xq[:512].cpu(), wq.cpu().t())
+        if not (torch.equal(acc, copy) and torch.equal(acc[:512].cpu(), cpu)):
+            raise AssertionError(f"_int_mm [{site}]: the card's int32 "
+                                 "product differs from the CPU's or between "
+                                 "operand layouts")
+        cast_first = site in ("qkv", "proj")
+        out = quant.dequantize_int32(acc, xs, ws, bias, torch.bfloat16,
+                                     cast_first)
+        same("Q2", out, quant.dequantize_int32_reference(
+            acc, xs, ws, bias, torch.bfloat16, cast_first))
+        wb = w.bfloat16()
+        # The same bytes as rows of LONG_ROW elements take Q1's two-pass
+        # long-row kernels: what the one-block-per-row kernel is held to.
+        x_long = x.view(-1, LONG_ROW)
+        t = {
+            "Q1": _cuda_ms(lambda: quant.quantize_int8(x), 20),
+            "Q1 two-pass": _cuda_ms(lambda: quant.quantize_int8(x_long), 20),
+            "Q1 plain": _cuda_ms(lambda: quant.quantize_int8_reference(x), 5),
+            "Q1 weight": _cuda_ms(lambda: quant.quantize_int8(w), 20),
+            "int_mm": _cuda_ms(lambda: torch._int_mm(xq, wq.t()), 20),
+            "int_mm (K, N)": _cuda_ms(lambda: torch._int_mm(xq, wkn), 20),
+            "bf16 GEMM": _cuda_ms(lambda: torch.mm(x, wb.t()), 20),
+            "Q2": _cuda_ms(lambda: quant.dequantize_int32(
+                acc, xs, ws, bias, torch.bfloat16, cast_first), 20),
+            "Q2 plain": _cuda_ms(lambda: quant.dequantize_int32_reference(
+                acc, xs, ws, bias, torch.bfloat16, cast_first), 5),
+        }
+        b1 = q1_bytes(M_TOKENS, k, 2) / PEAK_BYTES * 1e3
+        b2 = (M_TOKENS * n * 6 + M_TOKENS * 4 + n * 8) / PEAK_BYTES * 1e3
+        ops = 2 * M_TOKENS * n * k
+        q1_sites[f"{site} input ({M_TOKENS}, {k}) bf16"] = {
+            "ms": t["Q1"], "plain_ms": t["Q1 plain"], "bound_ms": b1}
+        q2_sites[f"{site} output ({M_TOKENS}, {n}) -> bf16"] = {
+            "ms": t["Q2"], "plain_ms": t["Q2 plain"], "bound_ms": b2}
+        print(f"  [{site}] ({M_TOKENS}, {k}) x ({k}, {n}): Q1 {t['Q1']:.4f} "
+              f"ms (bound {b1:.4f}, plain {t['Q1 plain']:.4f}; the same "
+              f"bytes as {tuple(x_long.shape)} rows on the two-pass "
+              f"kernels {t['Q1 two-pass']:.4f}), weight Q1 "
+              f"{t['Q1 weight']:.4f}; _int_mm {t['int_mm']:.4f} ms "
+              f"({ops / t['int_mm'] / 1e9:.1f} TOP/s; with a row-major "
+              f"(K, N) mat2 {t['int_mm (K, N)']:.4f}), bf16 "
+              f"GEMM {t['bf16 GEMM']:.4f} ms ({ops / t['bf16 GEMM'] / 1e9:.1f}"
+              f" TFLOP/s); Q2 {t['Q2']:.4f} ms (bound {b2:.4f}, plain "
+              f"{t['Q2 plain']:.4f}); W8A8 total "
+              f"{t['Q1'] + t['Q1 weight'] + t['int_mm'] + t['Q2']:.4f} ms "
+              f"against bf16 {t['bf16 GEMM']:.4f}")
+        del x, x_long, w, xq, wq, wkn, acc, copy, out
+
+    for site, (b, h, w_, c), cout, stride in DPT_CONVS:
+        x = torch.randn((b, c, h, w_), generator=gen, device="cuda").to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        wt = torch.randn((cout, c, 3, 3), generator=gen,
+                         device="cuda") / (9 * c) ** 0.5
+        bias = torch.randn(cout, generator=gen, device="cuda")
+        rows = x.permute(0, 2, 3, 1).reshape(b, -1)
+        xq, xs = quant.quantize_int8(rows)
+        same("Q1", xq, quant.quantize_int8_reference(rows)[0])
+        same("Q1", xs, quant.quantize_int8_reference(rows)[1])
+        wq, ws = quant.quantize_int8(
+            wt.permute(0, 2, 3, 1).reshape(cout, -1).contiguous())
+        xq4, wq4 = xq.view(b, h, w_, c), wq.view(cout, 3, 3, c)
+        acc = quant.conv_acc(xq4, wq4, stride, 1)
+        if not torch.equal(acc, quant.conv_acc_reference(xq4, wq4, stride,
+                                                         1)):
+            raise AssertionError(f"int8 conv [{site}]: the int32 "
+                                 "accumulator differs from the f64 plain one")
+        out = quant.dequantize_int32(acc, xs, ws, bias, torch.bfloat16)
+        same("Q2", out, quant.dequantize_int32_reference(
+            acc, xs, ws, bias, torch.bfloat16))
+        wb, bb = wt.bfloat16(), bias.bfloat16()
+        t = {
+            "Q1": _cuda_ms(lambda: quant.quantize_int8(rows), 10),
+            "Q1 plain": _cuda_ms(lambda: quant.quantize_int8_reference(rows),
+                                 3),
+            "taps": _cuda_ms(lambda: quant.conv_acc(xq4, wq4, stride, 1), 5),
+            "Q2": _cuda_ms(lambda: quant.dequantize_int32(
+                acc, xs, ws, bias, torch.bfloat16), 10),
+            "Q2 plain": _cuda_ms(lambda: quant.dequantize_int32_reference(
+                acc, xs, ws, bias, torch.bfloat16), 3),
+            "int8 conv": _cuda_ms(lambda: quant.int8_conv(
+                x, wt, bias, stride, 1), 5),
+            "cuDNN bf16": _cuda_ms(lambda: F.conv2d(x, wb, bb, stride, 1), 10),
+        }
+        ho, wo = acc.shape[1:3]
+        b1 = q1_bytes(b, h * w_ * c, 2) / PEAK_BYTES * 1e3
+        b2 = (b * ho * wo * cout * 6) / PEAK_BYTES * 1e3
+        q1_sites[f"{site} per-image rows ({b}, {h * w_ * c}) bf16"] = {
+            "ms": t["Q1"], "plain_ms": t["Q1 plain"], "bound_ms": b1}
+        q2_sites[f"{site} output ({b}, {ho}, {wo}, {cout}) -> bf16"] = {
+            "ms": t["Q2"], "plain_ms": t["Q2 plain"], "bound_ms": b2}
+        print(f"  [DPT {site}] ({b}, {c}, {h}, {w_}) -> {cout}, 3x3, stride "
+              f"{stride}: Q1 {t['Q1']:.4f} ms (bound {b1:.4f}, plain "
+              f"{t['Q1 plain']:.4f}); 9 tap _int_mm summed in int32 "
+              f"{t['taps']:.4f} ms; Q2 {t['Q2']:.4f} ms (bound {b2:.4f}, "
+              f"plain {t['Q2 plain']:.4f}); the whole int8 conv "
+              f"{t['int8 conv']:.4f} ms against cuDNN bf16 "
+              f"{t['cuDNN bf16']:.4f} ms")
+        del x, rows, xq, acc, out
+
+    # The accumulators against the CPU's: a fusion-block conv of 2 images.
+    xq = torch.randint(-127, 128, (2, 37, 37, 256), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (256, 3, 3, 256), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    if not torch.equal(quant.conv_acc(xq, wq, 1, 1).cpu(),
+                       quant.conv_acc_reference(xq.cpu(), wq.cpu(), 1, 1)):
+        raise AssertionError("int8 conv: the card's int32 accumulator "
+                             "differs from the CPU's")
+    print("  bit for bit: Q1 and Q2 against their plain versions at every "
+          "site above; _int_mm against the CPU's and in both layouts; the "
+          "tap convs against the f64 plain conv (and the CPU's)")
+    torch.cuda.empty_cache()
+    head_q1 = q1_sites[f"fc2 input ({M_TOKENS}, 4096) bf16"]
+    head_q2 = q2_sites[f"fc1 output ({M_TOKENS}, 4096) -> bf16"]
+    records = {}
+    for name, kernel, line, head, by_site in (
+            ("Q1", "quantize_rows_kernel (row_absmax_kernel + "
+             "quantize_long_kernel for rows over 4096)", 76, head_q1,
+             q1_sites),
+            ("Q2", "dequant_kernel", 177, head_q2, q2_sites)):
+        records[name] = {
+            "name": f"{name} {kernel}", "route": "cuda",
+            "source": QUANT_SRC, "replaces": f"{JAX_QUANT}:{line}",
+            "launches": 0, "max_abs_err": worst[name],
+            "ms": round(head["ms"], 4), "plain_ms": round(head["plain_ms"], 4),
+            "bound_ms": round(head["bound_ms"], 4), "bound_by": "bytes",
+            "library_ms": None,
+            "by_site": {k: {kk: round(vv, 4) for kk, vv in v.items()}
+                        for k, v in by_site.items()}}
+    return records["Q1"], records["Q2"]
+
+
+def phase_dials(model, frames, cli_paths, cli_plain, cli_f32, tmp: str,
+                smi: str) -> dict[str, dict[str, int]]:
+    """The speed dials at vitl, 518 px, batch 8, through BatchedRunner,
+    DepthServingEngine and cli.infer.main: dynamic int8, static int8
+    (K = 2), token merging at 0.3 and int8 with merging. Launches per
+    batch, each dial's maps against the plain f32 model (the rule of
+    DIAL_BOUND), device ms per batch, the auto scope at batch 8 and 64,
+    the engine's calibration of a held single batch, and the merged
+    forward repeated bit for bit. Returns the launches by path."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    quant = importlib.import_module(f"{PKG}.ops.quant")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    engine_mod = importlib.import_module(f"{PKG}.serving.engine")
+    infer = importlib.import_module(f"{PKG}.cli.infer")
+
+    sd = model.state_dict()
+
+    def dial_model(**kw):
+        m = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                 seed=0, **kw)
+        m.load_state_dict(sd)
+        return m
+
+    models = {"int8": dial_model(quant_int8=True),
+              "merge 0.3": dial_model(token_merge=0.3),
+              "int8 + merge 0.3": dial_model(quant_int8=True,
+                                             token_merge=0.3)}
+    models["int8 static K=2"] = models["int8"]
+    batch = frames[:BATCH]
+    plain, f32 = _plain_maps(model, batch)
+    bf16_rel = _rel(plain, f32)
+    x = torch.from_numpy(np.stack(batch)).cuda()
+    base_runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
+    default = np.stack(base_runner(batch))
+    net_hw = base_runner.net_hw
+    dev_ms = {"default": _cuda_ms(lambda: da._run_batched_u8(
+        model, x, net_hw, FRAME_HW), iters=10, warmup=2)}
+
+    def kernel_ms(fn, dial):
+        """Kernel time per forward (torch.profiler over 3): the device's
+        share of the CUDA-event time, whose rest is the host's launches."""
+        events = _profiled(fn, 3, f"dial [{dial}], vitl batch {BATCH} "
+                           "forward")
+        return sum(e.self_device_time_total for e in events) / 3 / 1e3
+
+    busy_ms = {"default": kernel_ms(lambda: da._run_batched_u8(
+        model, x, net_hw, FRAME_HW), "none")}
+    counts_by_path = {}
+    print(f"speed dials, vitl 518 px, batch {BATCH}, the serve phase's "
+          f"frames ({smi}); plain bf16 vs plain f32: mean relative "
+          f"distance {bf16_rel:.5f}; default device forward "
+          f"{dev_ms['default']:.2f} ms/batch "
+          f"({BATCH / dev_ms['default'] * 1e3:.2f} frames/s)")
+    rule = {}
+    for dial in DIAL_FLAGS:
+        bound = DIAL_BOUND[dial]
+        rule[dial] = (bound if bf16_rel <= bound / 10
+                      else DIAL_MULTIPLE * bf16_rel)
+    for dial, m in models.items():
+        calib = dial == "int8 static K=2"
+        runner = (da.BatchedRunner(m, FRAME_HW, 518, BATCH,
+                                   calib_frames=frames[:2 * BATCH],
+                                   calib_batches=2) if calib
+                  else da.BatchedRunner(m, FRAME_HW, 518, BATCH))
+        torch.cuda.synchronize()
+        _video_counts(fa, rz, zero=True)
+        maps = np.stack(runner(batch))
+        torch.cuda.synchronize()
+        counts = _video_counts(fa, rz)
+        counts_by_path[f"dials_runner[{dial}]"] = counts
+        want = _site_launches(dial)
+        _check_maps(list(maps))
+        rel = _rel(maps, f32)
+        if calib:
+            def fwd():
+                with quant.frozen_scales(runner.amax):
+                    return da._run_batched_u8(m, x, net_hw, FRAME_HW)
+        else:
+            def fwd():
+                return da._run_batched_u8(m, x, net_hw, FRAME_HW)
+        dev_ms[dial] = _cuda_ms(fwd, iters=10, warmup=2)
+        busy_ms[dial] = kernel_ms(fwd, dial)
+        repeat = ""
+        if "merge" in dial:
+            again = np.stack(runner(batch))
+            if not np.array_equal(again, maps):
+                raise AssertionError(f"dials [{dial}]: the merged forward "
+                                     "does not repeat bit for bit")
+            repeat = "; repeats bit for bit"
+        print(f"  [{dial}] BatchedRunner: device {dev_ms[dial]:.2f} ms/batch"
+              f" ({BATCH / dev_ms[dial] * 1e3:.2f} frames/s, "
+              f"{dev_ms[dial] / dev_ms['default']:.3f}x default); maps vs "
+              f"plain f32: mean relative distance {rel:.5f} (held < "
+              f"{rule[dial]:.5f}), vs default mean "
+              f"{np.abs(maps - default).mean():.5f} m; launches {counts} "
+              f"(want {want}){repeat}")
+        if counts != want or rel >= rule[dial] \
+                or np.array_equal(maps, default):
+            raise AssertionError(f"dials [{dial}]: launches {counts}, want "
+                                 f"{want}; relative distance {rel}")
+
+    print("  per batch of 8, CUDA-event ms (kernel ms by the profiler): "
+          + ", ".join(f"{k} {dev_ms[k]:.2f} ({busy_ms[k]:.2f})"
+                      for k in dev_ms))
+
+    # The auto scope: all at batch 8, mlp at batch 64; the card's times
+    # under each scope.
+    m8 = models["int8"]
+    big = (frames * 3)[:64]
+    x64 = torch.from_numpy(np.stack(big)).cuda()
+    runner64 = da.BatchedRunner(m8, FRAME_HW, 518, 64)
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    _check_maps(runner64(big))
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    sites64 = 24 * 2 + DPT_SITES
+    want = _want(K1=BLOCKS, Q1=2 * sites64, Q2=sites64)
+    if counts != want:
+        raise AssertionError(f"dials: auto scope at batch 64 launched "
+                             f"{counts}, want {want} (mlp)")
+    scope_ms = {}
+    try:
+        for scope in ("auto", "all", "mlp", "attn"):
+            m8.pretrained.quant_scope = scope
+            scope_ms[scope] = (
+                _cuda_ms(lambda: da._run_batched_u8(m8, x, net_hw, FRAME_HW),
+                         iters=10, warmup=2),
+                _cuda_ms(lambda: da._run_batched_u8(m8, x64, net_hw,
+                                                    FRAME_HW),
+                         iters=3, warmup=1))
+    finally:
+        m8.pretrained.quant_scope = "auto"
+    base64 = _cuda_ms(lambda: da._run_batched_u8(model, x64, net_hw,
+                                                 FRAME_HW), iters=3, warmup=1)
+    print(f"  int8 scope (device ms/batch at 8 and 64; default bf16 "
+          f"{dev_ms['default']:.2f} and {base64:.2f}): "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in
+                      scope_ms.items())
+          + f"; auto at 64 launched {counts} (scope mlp)")
+    del runner64, x64
+    torch.cuda.empty_cache()
+
+    # DepthServingEngine with static calibration (K = 2) on the serve
+    # frames, then a backlog of exactly one full batch, waited on
+    # without close(): calibrated once the queue stays idle.
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    with engine_mod.DepthServingEngine(m8, batch_size=BATCH,
+                                       calib_batches=2) as engine:
+        maps = [f.result(timeout=600) for f in engine.submit_many(frames)]
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    stats = engine.stats()
+    # Forwards, fixed in advance: the two calibration batches, then every
+    # frame again in full batches through the frozen runner (the held
+    # backlog is one served group, so the engine's batch count does not
+    # give them). Calibrating twice or serving the backlog twice fails.
+    runs = 2 + N_FRAMES // BATCH
+    want = {k: v * runs for k, v in _site_launches("int8").items()}
+    _check_maps(maps)
+    counts_by_path["dials_engine"] = counts
+    engine = engine_mod.DepthServingEngine(m8, batch_size=BATCH,
+                                           calib_batches=2)
+    try:
+        t0 = time.perf_counter()
+        one = [f.result(timeout=120)
+               for f in engine.submit_many(frames[:BATCH])]
+        waited = time.perf_counter() - t0
+    finally:
+        engine.close()
+    _check_maps(one)
+    print(f"  [int8 static K=2] DepthServingEngine: {len(maps)} frames in "
+          f"{stats['batches']} batches, launches {counts} (want {want}); "
+          f"a backlog of exactly one batch resolved in {waited:.2f} s "
+          "without close()")
+    if counts != want or stats["failed"]:
+        raise AssertionError(f"dials engine: launches {counts}, want {want};"
+                             f" stats {stats}")
+
+    # cli.infer.main on the infer phase's 32 frames (flat copies, listed
+    # in a text file), once per dial.
+    indir = os.path.join(tmp, "dials_in")
+    os.makedirs(indir)
+    listed = []
+    for p in cli_paths:
+        name = f"{os.path.basename(os.path.dirname(p))}_{os.path.basename(p)}"
+        listed.append(shutil.copy(p, os.path.join(indir, name)))
+    lst = os.path.join(tmp, "dials.txt")
+    with open(lst, "w", encoding="utf-8") as f:
+        f.write("\n".join(listed) + "\n")
+    cli_bf16 = _rel(cli_plain, cli_f32)
+    cli_default = np.stack([np.load(os.path.join(
+        os.path.dirname(p) + "_OP", os.path.basename(p)[:-4] + ".npy"))
+        for p in cli_paths])  # the infer phase's own maps
+    for dial, flags in DIAL_FLAGS.items():
+        out = os.path.join(tmp, "dials_out_" + str(len(counts_by_path)))
+        torch.cuda.synchronize()
+        _video_counts(fa, rz, zero=True)
+        result, _ = _captured(infer.main, [
+            "-i", lst, "-o", out, "--encoder", "vitl", "--batch-size",
+            str(BATCH), "--save-numpy"] + flags)
+        torch.cuda.synchronize()
+        counts = _video_counts(fa, rz)
+        counts_by_path[f"dials_infer[{dial}]"] = counts
+        runs = CLI_FRAMES // BATCH + (2 if "--int8-calib" in flags else 0)
+        want = {k: v * runs for k, v in _site_launches(dial).items()}
+        maps = np.stack([np.load(os.path.join(out, os.path.basename(p)[:-4]
+                                              + ".npy")) for p in listed])
+        _check_maps(list(maps))
+        rel = _rel(maps, cli_f32)
+        print(f"  [{dial}] infer CLI: {result['processed']} frames, "
+              f"{CLI_FRAMES / result['seconds']:.2f} frames/s through main()"
+              f"; maps vs plain f32 mean relative distance {rel:.5f} "
+              f"(plain bf16 {cli_bf16:.5f}, held < {rule[dial]:.5f}); "
+              f"launches {counts} (want {want})")
+        if counts != want or rel >= rule[dial] \
+                or result["processed"] != CLI_FRAMES \
+                or np.array_equal(maps, cli_default):
+            raise AssertionError(f"dials infer CLI [{dial}]: launches "
+                                 f"{counts}, want {want}; relative "
+                                 f"distance {rel}")
+    del models, m8
+    torch.cuda.empty_cache()
+    return counts_by_path
+
+
 def main() -> int:
     import torch
 
@@ -2424,14 +2891,14 @@ def main() -> int:
           f"faster in this run: {faster} (K2 {k2['ms']:.4f} ms, K3 "
           f"{k3['ms']:.4f} ms through the wrapper)")
     k6 = phase_k6()
+    q1, q2 = phase_quant_kernels(smi)
     torch.cuda.empty_cache()
 
     da = importlib.import_module(f"{PKG}.models.depth_anything")
     model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                  seed=0)
     frames = _frames(N_FRAMES, seed=0)
-    _reset_counts(fa)
-    serve_k1 = phase_serve(model, frames)
+    serve = phase_serve(model, frames)
     phase_plain(model, frames[:BATCH])
     phase_throughput(model, frames, k1["ms"], smi)
     phase_profile(model, frames)
@@ -2440,7 +2907,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     data = SeededFrames(TRAIN_MICROBATCHES, VAL_BATCHES, BATCH, seed=1)
-    phase_grads(data)
+    grads = phase_grads(data)
     torch.cuda.empty_cache()
     task, state, train = phase_train(data, smi)
     other = phase_train_other(data)
@@ -2459,6 +2926,7 @@ def main() -> int:
         model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                      seed=0)
         infer, paths, _, plain, f32 = phase_infer_cli(model, tmp, smi)
+        dials = phase_dials(model, frames, paths, plain, f32, tmp, smi)
         del model
         served = phase_serve_cli(paths, plain, f32, tmp, smi)
         torch.cuda.empty_cache()
@@ -2481,33 +2949,32 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vitg_serve = phase_vitg_serve(tmp, smi)
     torch.cuda.empty_cache()
-    vitg_grads = _want(**phase_grads(SeededFrames(1, 0, BATCH, seed=2),
-                                     "vitg", 2, VITG_BLOCKS))
+    vitg_grads = phase_grads(SeededFrames(1, 0, BATCH, seed=2), "vitg", 2,
+                             VITG_BLOCKS)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         pose = phase_pose(tmp, smi)
     phase_pose_parity()
-    # "serve_cli": the serve CLI ("serve" is DepthServingEngine's phase).
-    cli_paths = {"infer": infer, "serve_cli": served,
-                 "train_cli": train_cli, "test_cli": test_cli,
-                 "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
-                 "pose": pose, "pointcloud": recon_pc,
-                 "pointcloud_model": recon_model}
+    # Every path's counts, each read back from its own run: "serve" is
+    # DepthServingEngine's phase and "serve_cli" the serve CLI; "grads"
+    # the vitl microbatch; "train" the four-step fit on the default
+    # backward and "train_other" the one-step fit on the other.
+    by_path = {"serve": serve, "grads": grads, "train": train,
+               "train_other": other, "infer": infer, "serve_cli": served,
+               "train_cli": train_cli, "test_cli": test_cli,
+               "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
+               "pose": pose, "pointcloud": recon_pc,
+               "pointcloud_model": recon_model}
 
-    k1["launches"] = serve_k1
-    k1["launches_by_path"] = {"serve": serve_k1, "train": train["K1"],
-                              "video": video["default"]["K1"]}
+    k1["launches"] = serve["K1"]
+    k1["launches_by_path"] = {"video": video["default"]["K1"]}
     # "video": the launches over the four configurations (the video
     # phase holds every kernel outside its configuration to 0).
     on_video = {k: sum(c[k] for c in video.values())
                 for k in ("K2", "K3", "K5")}
-    # "train": the four-step fit on the default backward; "train_other":
-    # the one-step fit on the other.
     for rec, name in ((k2, "K2"), (k3, "K3")):
         rec["launches"] = train[name] + other[name]
-        rec["launches_by_path"] = {"train": train[name],
-                                   "train_other": other[name],
-                                   "video": on_video[name]}
+        rec["launches_by_path"] = {"video": on_video[name]}
     pair = video["PALLAS_RESIZE + PAIR"]
     k4["launches"] = pair["K4"]
     k4["launches_by_path"] = {"video": pair["K4"]}
@@ -2522,11 +2989,20 @@ def main() -> int:
                     "library_ms", "max_diff_k1")}
     k6["launches"] = pair["K6"]
     k6["launches_by_path"] = {"video": pair["K6"]}
-    for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
-                      ("K5", k5), ("K6", k6)):
+    # Q1 and Q2 run only under a dial: "dials_*" are phase "dials"'s
+    # paths (BatchedRunner, the engine and the infer CLI per dial).
+    for name, rec in (("Q1", q1), ("Q2", q2)):
+        rec["launches"] = sum(c[name] for c in dials.values())
+        rec["launches_by_path"] = {
+            "video": sum(c[name] for c in video.values())}
         rec["launches_by_path"].update(
-            {path: counts[name] for path, counts in cli_paths.items()})
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}))
+            {path: c[name] for path, c in dials.items()})
+    for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
+                      ("K5", k5), ("K6", k6), ("Q1", q1), ("Q2", q2)):
+        rec["launches_by_path"].update(
+            {path: counts[name] for path, counts in by_path.items()})
+    k1["launches_by_path"]["dials"] = sum(c["K1"] for c in dials.values())
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, q1, q2]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ convention. Frames are read by the port's PNG and JPEG readers
 (``media.imageio``): an unreadable frame is skipped with a warning that
 names its format. The model runs on the card unless ``--device cpu``.
 
-``--token-merge``, ``--int8`` and ``--int8-calib`` are parsed as in the
-JAX package and refused (ROADMAP, "Speed dials").
+The speed dials ``--token-merge``, ``--int8`` and ``--int8-calib K``
+act as in the JAX package; ``--int8-calib`` needs ``--int8`` and
+``--batch-size`` > 1, and holds the first K batches of each resolution
+to calibrate one frozen-scale runner.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.io import decode_rgb
-from . import add_speed_dials, refuse_speed_dials
+from . import add_speed_dials, check_speed_dials
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -55,7 +57,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="where the model runs: cuda (default) or cpu")
     add_speed_dials(p)
     args = p.parse_args(argv)
-    refuse_speed_dials(p, args)
+    check_speed_dials(p, args)
+    if args.int8_calib and args.batch_size < 2:
+        p.error("--int8-calib requires --int8 and --batch-size>1")
     return args
 
 
@@ -115,7 +119,8 @@ def main(argv=None) -> dict:
     """Run the CLI. Returns the counts it prints (``total``, ``skipped``,
     ``processed``, ``unreadable``), its wall ``seconds`` and the
     ``model_seconds`` spent in the model's entry points (upload, forward,
-    readback)."""
+    readback) and the ``runner_seconds`` spent building the batched
+    runners, with ``--int8-calib``'s calibration forwards."""
     from ..media.colormap import colorize_depth, side_by_side
     from ..media.imageio import write_png
     from ..models.convert import load_or_init_depth_model
@@ -124,7 +129,9 @@ def main(argv=None) -> dict:
     t_start = time.perf_counter()
     args = parse_args(argv)
     model = load_or_init_depth_model(args.encoder, args.max_depth,
-                                     args.load_from, device=args.device)
+                                     args.load_from, device=args.device,
+                                     token_merge=args.token_merge,
+                                     quant_int8=args.int8)
 
     filenames = enumerate_inputs(args)
     os.makedirs(args.outdir, exist_ok=True)
@@ -153,22 +160,33 @@ def main(argv=None) -> dict:
 
     unreadable = 0
     model_seconds = 0.0
+    runner_seconds = 0.0
     if args.batch_size > 1:
         # Stream in resolution-keyed chunks of batch_size: decode lazily,
         # flush each full chunk, never hold the whole input set in memory;
-        # one runner per resolution.
+        # one runner per resolution. With --int8-calib K the first K
+        # batches of a resolution are held, so its scales are calibrated
+        # once and every later flush reuses the frozen runner.
         chunks: dict[tuple, list] = {}
         runners: dict[tuple, BatchedRunner] = {}
+        calib_hold = max(1, args.int8_calib) * args.batch_size
 
-        def flush(shape):
-            nonlocal model_seconds
-            group = chunks.pop(shape, [])
+        def flush(shape, final=False):
+            nonlocal model_seconds, runner_seconds
+            group = chunks.get(shape, [])
             if not group:
                 return
             runner = runners.get(shape)
             if runner is None:
+                if args.int8_calib and len(group) < calib_hold and not final:
+                    return  # keep gathering the calibration set
+                t0 = time.perf_counter()
                 runner = runners[shape] = BatchedRunner(
-                    model, shape, args.input_size, args.batch_size)
+                    model, shape, args.input_size, args.batch_size,
+                    calib_frames=[raw for _, raw in group],
+                    calib_batches=args.int8_calib)
+                runner_seconds += time.perf_counter() - t0
+            del chunks[shape]
             t0 = time.perf_counter()
             depths = runner([raw for _, raw in group])
             model_seconds += time.perf_counter() - t0
@@ -185,7 +203,7 @@ def main(argv=None) -> dict:
             if len(chunks[shape]) >= args.batch_size:
                 flush(shape)
         for shape in list(chunks):
-            flush(shape)
+            flush(shape, final=True)
     else:
         for filename, out_folder, base_name in todo:
             raw = _imread_bgr(filename)
@@ -205,7 +223,7 @@ def main(argv=None) -> dict:
     return {"total": len(filenames), "skipped": skipped,
             "processed": processed, "unreadable": unreadable,
             "seconds": time.perf_counter() - t_start,
-            "model_seconds": model_seconds}
+            "model_seconds": model_seconds, "runner_seconds": runner_seconds}
 
 
 if __name__ == "__main__":

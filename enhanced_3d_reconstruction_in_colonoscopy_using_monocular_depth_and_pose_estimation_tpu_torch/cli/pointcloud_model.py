@@ -10,8 +10,8 @@ Runs the depth model on each frame (``infer_image``, on the card unless
 ``--device cpu``), back-projects it with the pinhole model
 (x = (u - cx) z / fx, ...; depth in metres, truncated at max depth + 1)
 with the per-SyntheticColon ``cam.txt`` (else ``UnityCam/cam.txt``), and
-writes one PLY per frame. ``--token-merge`` and ``--int8`` are parsed as
-in the JAX package and refused (ROADMAP, "Speed dials").
+writes one PLY per frame. The speed dials ``--token-merge`` and
+``--int8`` act as in the JAX package (which has no ``--int8-calib`` here).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from . import add_speed_dials, refuse_speed_dials
+from . import add_speed_dials
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -39,9 +39,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="where the model runs: cuda (default) or cpu")
     add_speed_dials(p, calib=False)
-    args = p.parse_args(argv)
-    refuse_speed_dials(p, args)
-    return args
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
@@ -58,7 +56,9 @@ def main(argv=None) -> dict:
     t_start = time.perf_counter()
     args = parse_args(argv)
     model = load_or_init_depth_model(args.encoder, args.max_depth,
-                                     args.load_from, device=args.device)
+                                     args.load_from, device=args.device,
+                                     token_merge=args.token_merge,
+                                     quant_int8=args.int8)
     dev = next(model.parameters()).device
 
     frames = sorted(glob.glob(os.path.join(

@@ -13,9 +13,10 @@ Usage:
         -i incoming_frames/ -o depths/ [--batch-size 8] [--poll 0.5]
         [--once]  # process what's there and exit (no watching)
 
-``--from-export`` (an AOT artifact) waits for ROADMAP "Export", and
-``--token-merge``, ``--int8`` and ``--int8-calib`` for "Speed dials":
-each exits with code 2.
+The speed dials ``--token-merge``, ``--int8`` and ``--int8-calib K`` act
+as in the JAX package (``--int8-calib``: the engine calibrates static
+scales on the first K batches of each resolution). ``--from-export`` (an
+AOT artifact) waits for ROADMAP "Export" and exits with code 2.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import time
 import numpy as np
 
 from ..data.io import decode_rgb
-from . import add_speed_dials, refuse_speed_dials
+from . import add_speed_dials, check_speed_dials
 
 
 class _ReadRetryTracker:
@@ -124,12 +125,14 @@ def main(argv=None) -> dict:
                    help="where the model runs: cuda (default) or cpu")
     add_speed_dials(p)
     args = p.parse_args(argv)
-    refuse_speed_dials(p, args)
+    check_speed_dials(p, args)
     if args.from_export:
         p.error("--from-export is not ported yet (ROADMAP, \"Export\")")
 
     model = load_or_init_depth_model(args.encoder, args.max_depth,
-                                     args.load_from, device=args.device)
+                                     args.load_from, device=args.device,
+                                     token_merge=args.token_merge,
+                                     quant_int8=args.int8)
     os.makedirs(args.outdir, exist_ok=True)
     processed: set[str] = set()
     stem_owner: dict[str, str] = {}  # guard a.png / a.jpg output collision
@@ -144,7 +147,8 @@ def main(argv=None) -> dict:
 
     with DepthServingEngine(model, input_size=args.input_size,
                             batch_size=args.batch_size,
-                            device=args.device) as engine:
+                            device=args.device,
+                            calib_batches=args.int8_calib) as engine:
         # Submit-then-drain in bounded chunks: a large pre-existing
         # backlog must not be decoded into host memory all at once.
         chunk = max(1, 4 * args.batch_size)

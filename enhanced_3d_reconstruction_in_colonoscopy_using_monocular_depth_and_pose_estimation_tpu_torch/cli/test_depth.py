@@ -59,7 +59,7 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = cfglib.compose(config_root, "test_config", overrides)
     refused = unported_knobs(cfg, training=False)
     if refused:
-        raise SystemExit("[test_depth] not ported yet: " + "; ".join(refused))
+        raise SystemExit("[test_depth] refused: " + "; ".join(refused))
 
     checkpoint_path = os.environ.get("CHECKPOINT_PATH")
     if not checkpoint_path:
@@ -79,9 +79,11 @@ def main(argv: list[str] | None = None) -> dict:
                      min_depth=float(cfg.model.min_depth),
                      max_depth=max_depth, policy=policy,
                      grad_checkpoint=False, device=device)
-    model = load_or_init_depth_model(cfg.model.encoder, max_depth,
-                                     checkpoint_path, device=device,
-                                     dtype=policy.compute_dtype)
+    model = load_or_init_depth_model(
+        cfg.model.encoder, max_depth, checkpoint_path, device=device,
+        dtype=policy.compute_dtype,
+        token_merge=float(cfg.model.get("token_merge", 0.0)),
+        quant_int8=bool(cfg.model.get("quant_int8", False)))
 
     pre = DevicePreprocessor(size=datamodule.size, device=device)
     per_proc: dict[str, dict[str, list[float]]] = {}

@@ -59,7 +59,9 @@ def resolve_max_depth(cfg) -> float:
 
 def unported_knobs(cfg, training: bool = True) -> list[str]:
     """The config's knobs that belong to later slices, each with its
-    ROADMAP item; empty when the config runs on the port."""
+    ROADMAP item, and, for ``training``, the speed dials, which apply to
+    inference and ``test_depth`` only (the int8 ops have no backward);
+    empty when the config runs on the port."""
     t = cfg.trainer
     parallel = [
         ("trainer.mesh_data", int(t.get("mesh_data", -1)) not in (-1, 1)),
@@ -78,8 +80,10 @@ def unported_knobs(cfg, training: bool = True) -> list[str]:
         out.append("trainer.debug_nans (ROADMAP, \"Distillation and NaN "
                    "checks\")")
     m = cfg.model
-    if float(m.get("token_merge", 0.0)) or bool(m.get("quant_int8", False)):
-        out.append("model.token_merge / model.quant_int8 (ROADMAP, \"Speed "
+    if training and (float(m.get("token_merge", 0.0))
+                     or bool(m.get("quant_int8", False))):
+        out.append("model.token_merge / model.quant_int8 apply to inference "
+                   "and test_depth, not to training (ROADMAP, \"Speed "
                    "dials\")")
     return out
 
@@ -109,8 +113,7 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
     cfg = cfglib.compose(config_root, "default", overrides)
     refused = unported_knobs(cfg)
     if refused:
-        raise SystemExit("[train_depth] not ported yet: "
-                         + "; ".join(refused))
+        raise SystemExit("[train_depth] refused: " + "; ".join(refused))
 
     run_dir = cfglib.run_dir(cfg, cfg.run_dir_template)
     cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))

@@ -49,7 +49,7 @@ def main(argv: list[str] | None = None) -> dict:
                          overrides)
     refused = unported_knobs(cfg)
     if refused:
-        raise SystemExit("[train_pose] not ported yet: " + "; ".join(refused))
+        raise SystemExit("[train_pose] refused: " + "; ".join(refused))
 
     run_dir = cfglib.run_dir(cfg, cfg.run_dir_template)
     cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))

@@ -14,9 +14,9 @@ Usage:
         [--encoder vitl --load-from ckpt] [--side-by-side] [--every-n 2]
         [--max-frames N] [--grayscale] [--quality 90] [--device cuda]
 
-``--token-merge``, ``--int8`` and ``--int8-calib`` are parsed as in the
-JAX package, but the port has no token merging or int8 yet (ROADMAP,
-"Speed dials"): any value but the default exits with an error.
+The speed dials ``--token-merge``, ``--int8`` and ``--int8-calib K`` act
+as in the JAX package, through the serving engine (``--int8-calib``: the
+first K batches calibrate the static scales the whole video runs under).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import os
 
 import numpy as np
 
-from . import add_speed_dials, refuse_speed_dials
+from . import add_speed_dials, check_speed_dials
 
 
 def _frames(path: str, every_n: int, max_frames: int | None):
@@ -78,10 +78,12 @@ def main(argv=None, on_depth=None) -> dict:
     args = p.parse_args(argv)
     if args.every_n < 1:
         p.error("--every-n must be >= 1")
-    refuse_speed_dials(p, args)
+    check_speed_dials(p, args)
 
     model = load_or_init_depth_model(args.encoder, args.max_depth,
-                                     args.load_from, device=args.device)
+                                     args.load_from, device=args.device,
+                                     token_merge=args.token_merge,
+                                     quant_int8=args.int8)
     out_dir = os.path.dirname(os.path.abspath(args.output))
     os.makedirs(out_dir, exist_ok=True)
 
@@ -90,7 +92,8 @@ def main(argv=None, on_depth=None) -> dict:
     try:
         with DepthServingEngine(model, input_size=args.input_size,
                                 batch_size=args.batch_size,
-                                device=args.device) as engine:
+                                device=args.device,
+                                calib_batches=args.int8_calib) as engine:
             def render(rgb: np.ndarray, depth: np.ndarray) -> np.ndarray:
                 vis = colorize_depth(depth, grayscale=args.grayscale,
                                      bgr=False)

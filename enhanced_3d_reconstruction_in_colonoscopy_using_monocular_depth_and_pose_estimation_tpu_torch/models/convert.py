@@ -43,20 +43,23 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
                              load_from: str | None,
                              device: str | torch.device = "cuda",
                              seed: int = 0,
-                             dtype: torch.dtype = POLICY_BF16.compute_dtype
-                             ) -> DepthAnythingV2:
+                             dtype: torch.dtype = POLICY_BF16.compute_dtype,
+                             token_merge: float = 0.0,
+                             quant_int8: bool = False) -> DepthAnythingV2:
     """The ``encoder`` depth model on ``device`` (the card unless the
-    caller asks for the CPU), computing in ``dtype``, in eval mode, as the
-    JAX package's ``load_or_init_depth_params``: a directory is the port's
-    own training output (``core.checkpoint``: the best save by val_loss,
-    else the newest), a file is a DAv2 ``.pth`` or Lightning ``.ckpt``,
-    and neither gives the seeded random init. A directory of the JAX
-    package's Orbax checkpoints raises ``ValueError``: reading one needs
-    jax."""
+    caller asks for the CPU), computing in ``dtype`` with the speed dials
+    ``token_merge`` and ``quant_int8`` (``build_depth_model``), in eval
+    mode, as the JAX package's ``load_or_init_depth_params``: a directory
+    is the port's own training output (``core.checkpoint``: the best save
+    by val_loss, else the newest), a file is a DAv2 ``.pth`` or Lightning
+    ``.ckpt``, and neither gives the seeded random init. A directory of
+    the JAX package's Orbax checkpoints raises ``ValueError``: reading one
+    needs jax."""
     from ..core.checkpoint import CheckpointManager
 
     model = build_depth_model(encoder, max_depth=max_depth, dtype=dtype,
-                              device=device, seed=seed)
+                              device=device, seed=seed,
+                              token_merge=token_merge, quant_int8=quant_int8)
     if load_from and os.path.isdir(load_from):
         state = CheckpointManager(load_from).read_best()
         if state is None and _looks_like_orbax(load_from):

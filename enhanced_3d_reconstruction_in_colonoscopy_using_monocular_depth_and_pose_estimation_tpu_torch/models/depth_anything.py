@@ -11,6 +11,8 @@ on the device.
 from __future__ import annotations
 
 import math
+import os
+import warnings
 from typing import Any
 
 import numpy as np
@@ -19,6 +21,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..core.dtypes import POLICY_BF16
+from ..ops.quant import calibrate_scales, frozen_scales
 from ..ops.resize import resize_align_corners, resize_antialias
 from .dinov2 import PATCH_SIZE, VIT_ARCHS, DinoViT
 from .dpt import DPTHead
@@ -49,18 +52,30 @@ class DepthAnythingV2(nn.Module):
     compute dtype of encoder and decoder; parameters stay f32.
     ``grad_checkpoint`` recomputes each encoder block in the backward
     (training mode only).
+
+    The speed dials are fields fixed at build time: ``token_merge`` (the
+    ToMe fraction, 0 = off), ``quant_int8`` (W8A8 encoder projections over
+    ``quant_scope``; with ``quant_dpt`` also the decoder's wide convs).
+    Both are inference-only; the int8 ops raise under autograd.
     """
 
     def __init__(self, encoder: str = "vitl", features: int = 256,
                  out_channels: tuple[int, ...] = (256, 512, 1024, 1024),
                  max_depth: float = 20.0,
                  dtype: torch.dtype = POLICY_BF16.compute_dtype,
-                 grad_checkpoint: bool = False):
+                 grad_checkpoint: bool = False, token_merge: float = 0.0,
+                 quant_int8: bool = False, quant_scope: str = "auto",
+                 quant_dpt: bool = True):
         super().__init__()
         self.max_depth = max_depth
-        self.pretrained = DinoViT(encoder, dtype, grad_checkpoint)
+        self.quant_int8 = quant_int8  # read by the calibrating callers
+        self.pretrained = DinoViT(encoder, dtype, grad_checkpoint,
+                                  token_merge=token_merge,
+                                  quant_int8=quant_int8,
+                                  quant_scope=quant_scope)
         self.depth_head = DPTHead(VIT_ARCHS[encoder]["embed_dim"], features,
-                                  out_channels)
+                                  out_channels,
+                                  quant=quant_int8 and quant_dpt)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = img.shape
@@ -92,21 +107,35 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
+_QUANT_SCOPES = ("auto", "all", "mlp", "attn")
+
+
 def build_depth_model(encoder: str, max_depth: float = 20.0,
                       dtype: torch.dtype = POLICY_BF16.compute_dtype,
                       device: str | torch.device = "cuda",
                       seed: int = 0,
-                      grad_checkpoint: bool = False) -> DepthAnythingV2:
+                      grad_checkpoint: bool = False,
+                      token_merge: float = 0.0,
+                      quant_int8: bool = False) -> DepthAnythingV2:
     """The ``encoder`` model on ``device`` in eval mode, with seeded random
     weights (load a checkpoint over them with ``models.convert``). A
     trainer puts it in ``.train()``; ``grad_checkpoint`` then recomputes
-    each encoder block in the backward."""
+    each encoder block in the backward. ``token_merge`` and ``quant_int8``
+    are the speed dials; the int8 scope comes from ``E3D_QUANT_SCOPE``
+    (auto, all, mlp or attn; another value raises) and the decoder's int8
+    convs from ``E3D_QUANT_DPT`` (on unless "0"), as in the JAX package."""
+    scope = os.environ.get("E3D_QUANT_SCOPE", "auto")
+    if scope not in _QUANT_SCOPES:
+        raise ValueError(f"E3D_QUANT_SCOPE={scope!r}; expected one of "
+                         f"{_QUANT_SCOPES}")
     dev = resolve_device(device)
     cfg = MODEL_CONFIGS[encoder]
     with dev:
-        model = DepthAnythingV2(cfg["encoder"], cfg["features"],
-                                tuple(cfg["out_channels"]), max_depth, dtype,
-                                grad_checkpoint)
+        model = DepthAnythingV2(
+            cfg["encoder"], cfg["features"], tuple(cfg["out_channels"]),
+            max_depth, dtype, grad_checkpoint, token_merge=token_merge,
+            quant_int8=quant_int8, quant_scope=scope,
+            quant_dpt=os.environ.get("E3D_QUANT_DPT", "1") == "1")
     return init_random(model, seed).eval()
 
 
@@ -179,11 +208,19 @@ class BatchedRunner:
 
     Frames go up as uint8 in chunks of ``batch_size`` (ragged tails
     zero-padded, so every batch has one shape) and come back as (H, W)
-    float depth maps (f16 with ``readback_f16``)."""
+    float depth maps (f16 with ``readback_f16``).
+
+    ``calib_batches`` K > 0 (a ``quant_int8`` model): static int8
+    calibration, once, on the first K batches of ``calib_frames``; the
+    per-site abs-maxes are kept in ``self.amax`` and every later call runs
+    under those frozen scales. Fewer frames than K batches warn; none
+    raise."""
 
     def __init__(self, model: DepthAnythingV2,
                  resolution_hw: tuple[int, int], input_size: int = 518,
-                 batch_size: int = 8, readback_f16: bool = False):
+                 batch_size: int = 8, readback_f16: bool = False,
+                 calib_frames: list[np.ndarray] | None = None,
+                 calib_batches: int = 0):
         h, w = resolution_hw
         self.model = model
         self.resolution_hw = (h, w)
@@ -191,6 +228,29 @@ class BatchedRunner:
         self.readback_f16 = readback_f16
         self.net_hw = _lower_bound_hw(h, w, input_size)
         self.device = _model_device(model)
+        self.amax = None
+        if calib_batches > 0:
+            if not getattr(model, "quant_int8", False):
+                raise ValueError("calib_batches requires quant_int8=True")
+            calib_frames = calib_frames or []
+            want = calib_batches * batch_size
+            if not calib_frames:
+                raise ValueError("calib_batches > 0 requires calib_frames")
+            if len(calib_frames) < want:
+                warnings.warn(
+                    f"int8 calibration requested {calib_batches} batches "
+                    f"({want} frames) but only {len(calib_frames)} frames "
+                    "were available — scales frozen from a smaller set",
+                    stacklevel=2)
+            self.amax = calibrate_scales(
+                self._forward,
+                [arr for arr, _ in chunk_bgr_u8(calib_frames[:want],
+                                                batch_size)])
+
+    def _forward(self, arr: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(arr).to(self.device)
+        return _run_batched_u8(self.model, x, self.net_hw,
+                               self.resolution_hw, self.readback_f16)
 
     def __call__(self, bgr_frames: list[np.ndarray]) -> list[np.ndarray]:
         for f in bgr_frames:
@@ -199,9 +259,11 @@ class BatchedRunner:
                                  f"{self.resolution_hw}; got {f.shape[:2]}")
         outputs: list[np.ndarray] = []
         for arr, n in chunk_bgr_u8(bgr_frames, self.batch_size):
-            x = torch.from_numpy(arr).to(self.device)
-            depth = _run_batched_u8(self.model, x, self.net_hw,
-                                    self.resolution_hw, self.readback_f16)
+            if self.amax is None:
+                depth = self._forward(arr)
+            else:
+                with frozen_scales(self.amax):
+                    depth = self._forward(arr)
             outputs.extend(depth[:n].cpu().numpy())
         return outputs
 

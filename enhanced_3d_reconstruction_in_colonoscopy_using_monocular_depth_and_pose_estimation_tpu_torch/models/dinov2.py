@@ -17,7 +17,15 @@ Attention goes through ``ops.attention`` (kernels K1 and K2 on the card).
 The residual stream is never padded: the kernels mask the ragged token
 edge themselves. ``grad_checkpoint`` recomputes each block in the backward
 (the JAX package's ``nn.remat(Block)``), in training mode only, whatever
-the block's FFN. Token merging and int8 are not ported yet.
+the block's FFN.
+
+The speed dials are ``DinoViT`` fields set at build time, as in the JAX
+package: ``token_merge`` merges that fraction of the patch tokens after the
+first tap block (``ops/token_merge.py``) and unmerges the later taps after
+the final norm; ``quant_int8`` runs the blocks' projections in W8A8
+(``ops/quant.py``) over the scope ``quant_scope`` (``auto``, ``all``,
+``mlp`` or ``attn``; ``auto`` is ``all`` at a batch of at most 32, else
+``mlp``, the JAX package's rule for one device).
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.dtypes import POLICY_BF16
 from ..ops import attention as attn_ops
+from ..ops.quant import int8_dense
+from ..ops.token_merge import bipartite_merge, unmerge
 
 VIT_ARCHS: dict[str, dict[str, Any]] = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -75,7 +85,10 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if quant:
+            h = F.gelu(int8_dense(x, self.fc1.weight, self.fc1.bias))
+            return int8_dense(h, self.fc2.weight, self.fc2.bias)
         return linear(F.gelu(linear(x, self.fc1)), self.fc2)
 
 
@@ -95,7 +108,11 @@ class SwiGLU(nn.Module):
         self.w12 = nn.Linear(dim, 2 * hidden_dim)
         self.w3 = nn.Linear(hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        if quant:
+            x1, x2 = int8_dense(x, self.w12.weight,
+                                self.w12.bias).chunk(2, dim=-1)
+            return int8_dense(F.silu(x1) * x2, self.w3.weight, self.w3.bias)
         x1, x2 = linear(x, self.w12).chunk(2, dim=-1)
         return linear(F.silu(x1) * x2, self.w3)
 
@@ -116,10 +133,10 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
         return attn_ops.qkv_self_attention(
             x, self.qkv.weight, self.qkv.bias, self.proj.weight,
-            self.proj.bias, self.num_heads)
+            self.proj.bias, self.num_heads, quant=quant)
 
 
 class Block(nn.Module):
@@ -137,9 +154,16 @@ class Block(nn.Module):
             raise ValueError(f"unknown ffn: {ffn!r}")
         self.ls2 = LayerScale(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(layer_norm(x, self.norm1)))
-        return x + self.ls2(self.mlp(layer_norm(x, self.norm2)))
+    def forward(self, x: torch.Tensor, quant: bool = False,
+                scope: str = "auto") -> torch.Tensor:
+        """``quant`` takes the projections of ``scope`` in W8A8; ``auto``
+        quantizes attention too while the batch is at most 32."""
+        if scope == "auto":
+            scope = "all" if x.shape[0] <= 32 else "mlp"
+        attn_q = quant and scope in ("all", "attn")
+        mlp_q = quant and scope in ("all", "mlp")
+        x = x + self.ls1(self.attn(layer_norm(x, self.norm1), attn_q))
+        return x + self.ls2(self.mlp(layer_norm(x, self.norm2), mlp_q))
 
 
 def _torch_bicubic_matrix(out_size: int, in_size: int,
@@ -206,11 +230,14 @@ class PatchEmbed(nn.Module):
 class DinoViT(nn.Module):
     """DINOv2 ViT trunk exposing DAv2-style intermediate features. ``ffn``
     overrides the encoder's FFN ("mlp" or "swiglu"); "" takes it from
-    ``VIT_ARCHS`` (swiglu for vitg)."""
+    ``VIT_ARCHS`` (swiglu for vitg). ``token_merge``, ``quant_int8`` and
+    ``quant_scope`` are the speed dials (module docstring)."""
 
     def __init__(self, encoder: str = "vitl",
                  dtype: torch.dtype = POLICY_BF16.compute_dtype,
-                 grad_checkpoint: bool = False, ffn: str = ""):
+                 grad_checkpoint: bool = False, ffn: str = "",
+                 token_merge: float = 0.0, quant_int8: bool = False,
+                 quant_scope: str = "auto"):
         super().__init__()
         arch = VIT_ARCHS[encoder]
         ffn = ffn or arch.get("ffn", "mlp")
@@ -219,6 +246,9 @@ class DinoViT(nn.Module):
         self.encoder = encoder
         self.dtype = dtype
         self.grad_checkpoint = grad_checkpoint
+        self.token_merge = token_merge
+        self.quant_int8 = quant_int8
+        self.quant_scope = quant_scope
         self.patch_embed = PatchEmbed(dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         # In the checkpoints; unused at inference.
@@ -249,13 +279,23 @@ class DinoViT(nn.Module):
         outputs: dict[int, torch.Tensor] = {}
         remat = (self.grad_checkpoint and self.training
                  and torch.is_grad_enabled())
+        dials = (self.quant_int8, self.quant_scope)
+        merge_after = min(taps) if self.token_merge > 0 and taps else None
+        slot_map = None
+        merged_taps: set[int] = set()
         for i, block in enumerate(self.blocks):
-            x = checkpoint(block, x, use_reentrant=False) if remat \
-                else block(x)
+            x = checkpoint(block, x, *dials, use_reentrant=False) if remat \
+                else block(x, *dials)
             if i in taps:
                 outputs[i] = x
+                if slot_map is not None:
+                    merged_taps.add(i)
+            if i == merge_after:
+                x, slot_map = bipartite_merge(x, self.token_merge)
         results = []
         for i in taps:
             y = layer_norm(outputs[i], self.norm)
+            if i in merged_taps:
+                y = unmerge(y, slot_map)
             results.append((y[:, 1:], y[:, 0]))
         return results

@@ -20,6 +20,12 @@ float32 cuDNN convolution would run in TF32 by default. The JAX package's
 lane-packing of the head (``PackedStride2Conv``/``PackedPointwiseHead``)
 only filled TPU lanes; here those are the plain 3x3 and 1x1 convs with
 the same parameters.
+
+``quant`` (the int8 dial, a build-time field) runs a convolution in W8A8
+(``ops/quant.py::int8_conv``) when both its channel widths are at least
+128, the JAX package's ``QConv`` gate: the projections, the stride-2
+resize, the scratch convs, the fusion blocks' convs and ``output_conv1``.
+The transposed convs and the head's last two convs stay in x's dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import int8_conv
 from ..ops.resize import resize_align_corners
 
 
@@ -38,6 +45,14 @@ def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
     return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride,
                     layer.padding)
+
+
+def qconv(x: torch.Tensor, layer: nn.Conv2d, quant: bool) -> torch.Tensor:
+    """``conv``, in W8A8 when ``quant`` and both widths are >= 128."""
+    if quant and min(layer.in_channels, layer.out_channels) >= 128:
+        return int8_conv(x, layer.weight, layer.bias, layer.stride[0],
+                         layer.padding[0])
+    return conv(x, layer)
 
 
 def conv_transpose(x: torch.Tensor, layer: nn.ConvTranspose2d
@@ -51,24 +66,27 @@ def _resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, features: int):
+    def __init__(self, features: int, quant: bool = False):
         super().__init__()
+        self.quant = quant
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv(F.relu(x), self.conv1)
-        return conv(F.relu(out), self.conv2) + x
+        out = qconv(F.relu(x), self.conv1, self.quant)
+        return qconv(F.relu(out), self.conv2, self.quant) + x
 
 
 class FeatureFusionBlock(nn.Module):
-    def __init__(self, features: int, has_residual: bool = True):
+    def __init__(self, features: int, has_residual: bool = True,
+                 quant: bool = False):
         super().__init__()
+        self.quant = quant
         # refinenet4 takes a single input; its resConfUnit1 in the
         # checkpoints is never used, so it is not built.
         if has_residual:
-            self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+            self.resConfUnit1 = ResidualConvUnit(features, quant)
+        self.resConfUnit2 = ResidualConvUnit(features, quant)
         self.out_conv = nn.Conv2d(features, features, 1)
 
     def forward(self, x: torch.Tensor, res: torch.Tensor | None = None,
@@ -80,18 +98,19 @@ class FeatureFusionBlock(nn.Module):
             out_hw = (2 * x.shape[-2], 2 * x.shape[-1])
         # The JAX package's order: 1x1 out_conv, then the resize (exact
         # in real arithmetic, not in bf16, so the order is kept).
-        return _resize(conv(x, self.out_conv), out_hw)
+        return _resize(qconv(x, self.out_conv, self.quant), out_hw)
 
 
 class _Scratch(nn.Module):
-    def __init__(self, features: int, out_channels: Sequence[int]):
+    def __init__(self, features: int, out_channels: Sequence[int],
+                 quant: bool = False):
         super().__init__()
         for k in range(1, 5):
             setattr(self, f"layer{k}_rn",
                     nn.Conv2d(out_channels[k - 1], features, 3, padding=1,
                               bias=False))
             setattr(self, f"refinenet{k}",
-                    FeatureFusionBlock(features, has_residual=k != 4))
+                    FeatureFusionBlock(features, k != 4, quant))
         self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
         self.output_conv2 = nn.Sequential(
             nn.Conv2d(features // 2, 32, 3, padding=1), nn.ReLU(),
@@ -100,8 +119,9 @@ class _Scratch(nn.Module):
 
 class DPTHead(nn.Module):
     def __init__(self, embed_dim: int, features: int,
-                 out_channels: Sequence[int]):
+                 out_channels: Sequence[int], quant: bool = False):
         super().__init__()
+        self.quant = quant
         oc = list(out_channels)
         self.projects = nn.ModuleList(nn.Conv2d(embed_dim, c, 1) for c in oc)
         self.resize_layers = nn.ModuleList([
@@ -110,7 +130,7 @@ class DPTHead(nn.Module):
             nn.Identity(),
             nn.Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
-        self.scratch = _Scratch(features, oc)
+        self.scratch = _Scratch(features, oc, quant)
 
     def forward(self, taps: list[tuple[torch.Tensor, torch.Tensor]],
                 patch_h: int, patch_w: int) -> torch.Tensor:
@@ -121,23 +141,23 @@ class DPTHead(nn.Module):
         for i, (tokens, _cls) in enumerate(taps):
             b, _, c = tokens.shape
             x = tokens.transpose(1, 2).reshape(b, c, patch_h, patch_w)
-            x = conv(x, self.projects[i])
+            x = qconv(x, self.projects[i], self.quant)
             layer = self.resize_layers[i]
             if isinstance(layer, nn.ConvTranspose2d):
                 x = conv_transpose(x, layer)
             elif isinstance(layer, nn.Conv2d):
-                x = conv(x, layer)
+                x = qconv(x, layer, self.quant)
             outs.append(x)
 
         s = self.scratch
-        l1, l2, l3, l4 = (conv(x, getattr(s, f"layer{i + 1}_rn"))
-                          for i, x in enumerate(outs))
+        l1, l2, l3, l4 = (qconv(x, getattr(s, f"layer{i + 1}_rn"),
+                                self.quant) for i, x in enumerate(outs))
         path4 = s.refinenet4(l4, None, out_hw=tuple(l3.shape[-2:]))
         path3 = s.refinenet3(path4, l3, out_hw=tuple(l2.shape[-2:]))
         path2 = s.refinenet2(path3, l2, out_hw=tuple(l1.shape[-2:]))
         path1 = s.refinenet1(path2, l1)
 
-        out = conv(path1, s.output_conv1)
+        out = qconv(path1, s.output_conv1, self.quant)
         out = _resize(out, (patch_h * 14, patch_w * 14))
         out = conv(out, s.output_conv2[0])
         # Final 1x1 conv and sigmoid in f32 (bf16 sigmoid saturation costs

@@ -10,6 +10,16 @@
 - ``close()`` serves everything submitted before it, then stops the thread.
 
 The model's weights go to the device once, when the engine is built.
+
+``calib_batches`` K > 0 (a ``quant_int8`` model) calibrates static int8
+scales once per resolution: the first K device batches are held (their
+futures resolve late), calibrate a frozen-scale ``BatchedRunner``, and
+are served through it with every later batch of that resolution. A
+partial batch, an idle queue or ``close()`` calibrates early on what is
+held. So a held backlog waits at most ``max_delay_s`` for more frames:
+the JAX package's engine waits for the next frame without a timeout and
+hangs when the frames stop, below K batches, at a multiple of the batch
+size.
 """
 
 from __future__ import annotations
@@ -95,12 +105,19 @@ class DepthServingEngine:
 
     def __init__(self, model, input_size: int = 518, batch_size: int = 8,
                  max_delay_s: float = 0.05,
-                 device: str = "cuda"):
+                 device: str = "cuda", calib_batches: int = 0):
+        self.calib_batches = int(calib_batches)
+        if self.calib_batches > 0 and not getattr(model, "quant_int8",
+                                                  False):
+            raise ValueError("calib_batches requires a quant_int8 model "
+                             "(--int8)")
         self.model = model.to(resolve_device(device)).eval()
         self.input_size = input_size
         self.batch_size = batch_size
         self.max_delay_s = max_delay_s
         self._runners: dict[tuple, BatchedRunner] = {}  # worker-local
+        # worker-local: resolution -> items held for calibration
+        self._calib_wait: dict[tuple, list] = {}
         self._queue: queue.Queue = queue.Queue()
         self._stats = _Stats()
         self._deferred: list = []  # worker-local: other-resolution frames
@@ -160,11 +177,16 @@ class DepthServingEngine:
         worker-local deferred list (NOT back onto the queue: a tail
         re-queue would land behind the shutdown sentinel and starve
         minority resolutions). Returns None only once everything,
-        including deferred frames, has been served."""
+        including deferred frames, has been served, and [] when a
+        calibration backlog is held and no frame came for max_delay_s."""
         if self._deferred:
             first = self._deferred.pop(0)
         else:
-            first = self._queue.get()
+            try:
+                first = self._queue.get(
+                    timeout=self.max_delay_s if self._calib_wait else None)
+            except queue.Empty:
+                return []
             if first is None:
                 return None
         items = [first]
@@ -203,12 +225,12 @@ class DepthServingEngine:
             self._runners[shape] = runner
         return runner
 
-    def _serve_items(self, items) -> None:
+    def _serve_items(self, items, runner=None) -> None:
         frames = [bgr for bgr, _, _ in items]
         futures = [fut for _, fut, _ in items]
         failed = False
         try:
-            depths = self._runner(frames[0].shape)(frames)
+            depths = (runner or self._runner(frames[0].shape))(frames)
             for fut, depth in zip(futures, depths):
                 fut.set_result(depth)
         except Exception as exc:  # the worker keeps serving; waiters see it
@@ -220,9 +242,44 @@ class DepthServingEngine:
         self._stats.note_batch(len(items), [done - t for _, _, t in items],
                                failed)
 
+    def _freeze_and_serve(self, shape: tuple) -> None:
+        """Calibrate once on the backlog held for ``shape``, keep the
+        frozen-scale runner, and serve the backlog through it."""
+        items = self._calib_wait.pop(shape, [])
+        if not items:
+            return
+        try:
+            runner = BatchedRunner(
+                self.model, shape[:2], self.input_size, self.batch_size,
+                calib_frames=[bgr for bgr, _, _ in items],
+                calib_batches=self.calib_batches)
+        except Exception as exc:  # the worker keeps serving; waiters see it
+            for _, fut, _ in items:
+                if not fut.done():
+                    fut.set_exception(exc)
+            self._stats.note_batch(len(items), [], True)
+            return
+        self._runners[shape] = runner
+        self._serve_items(items, runner)
+
     def _run(self) -> None:
         while True:
             items = self._collect_batch()
-            if items is None:
-                return
+            if not items:
+                # Shutdown (None) or an idle queue ([]): calibrate and
+                # serve whatever is held.
+                for shape in list(self._calib_wait):
+                    self._freeze_and_serve(shape)
+                if items is None:
+                    return
+                continue
+            shape = items[0][0].shape
+            if self.calib_batches > 0 and shape not in self._runners:
+                wait = self._calib_wait.setdefault(shape, [])
+                wait.extend(items)
+                # Once K batches are held, or early on a partial batch.
+                if (len(wait) >= self.calib_batches * self.batch_size
+                        or len(items) < self.batch_size):
+                    self._freeze_and_serve(shape)
+                continue
             self._serve_items(items)

@@ -204,13 +204,44 @@ def test_retry_tracker_parks_and_unparks(tmp_path):
 ])
 def test_unported_flags_exit_with_code_2(env, cli, flags, item, tmp_path,
                                          capsys):
-    if cli == "infer":
-        main, args = tinfer.main, _infer_args(env, env / "flat", "flat", 4)
-    else:
-        main, args = tserve.main, _serve_args(env, env / "flat",
-                                              tmp_path / "o")
-    with pytest.raises(SystemExit) as exc:
-        main(args + flags + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert f'ROADMAP, "{item}"' in capsys.readouterr().err
-    assert not (env / "flat" / "out").exists()
+    """``--from-export`` (ROADMAP "Export") still exits with code 2. The
+    speed dials, refused until the port had them, now run: each writes
+    every map, finite and in [0, max_depth], and moves the maps away from
+    the default run's."""
+    def run(extra, out):
+        if cli == "infer":
+            args = _infer_args(env, env / "flat", "flat", 4)[:-2]
+            return tinfer.main(args + ["-o", str(out), "--device", "cpu"]
+                               + extra)
+        return tserve.main(_serve_args(env, env / "flat", out)
+                           + ["--device", "cpu"] + extra)
+
+    if item == "Export":
+        with pytest.raises(SystemExit) as exc:
+            run(flags, tmp_path / "o")
+        assert exc.value.code == 2
+        assert f'ROADMAP, "{item}"' in capsys.readouterr().err
+        assert not (tmp_path / "o").exists()
+        return
+    run([], tmp_path / "default")
+    run(flags, tmp_path / "dial")
+    default = {p.name: np.load(p)
+               for p in sorted((tmp_path / "default").rglob("*.npy"))}
+    dial = {p.name: np.load(p)
+            for p in sorted((tmp_path / "dial").rglob("*.npy"))}
+    assert len(default) == N_FLAT and sorted(dial) == sorted(default)
+    for name, depth in dial.items():
+        assert depth.shape == (64, 64) and np.isfinite(depth).all()
+        assert depth.min() >= 0.0 and depth.max() <= 20.0
+    assert any(not np.array_equal(dial[k], default[k]) for k in dial)
+
+
+def test_infer_int8_calib_needs_int8_and_batching(env, tmp_path, capsys):
+    args = _infer_args(env, env / "flat", "flat", 1)[:-2] + [
+        "-o", str(tmp_path / "o"), "--device", "cpu"]
+    for extra in (["--int8", "--int8-calib", "2"], ["--int8-calib", "2"]):
+        with pytest.raises(SystemExit) as exc:
+            tinfer.main(args + extra)
+        assert exc.value.code == 2
+    assert "--int8-calib requires --int8" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()

@@ -151,6 +151,31 @@ def test_test_depth_matches_the_jax_cli(simcol, ds, tmp_path, monkeypatch):
     assert (got["encoder"], got["ds_type"]) == ("vitt", ds)
 
 
+@pytest.mark.parametrize("dial", ["++model.quant_int8=true",
+                                  "++model.token_merge=0.3"])
+def test_test_depth_runs_the_speed_dials(simcol, dial, tmp_path,
+                                         monkeypatch):
+    """The dials reach the evaluated model (finite metrics that move away
+    from the default run's); train_depth refuses them, naming what they
+    apply to."""
+    monkeypatch.chdir(tmp_path)
+    # The port's seeded init (LeCun-normal): the synthetic state dict's
+    # N(0, 0.02) weights give near-constant maps that no dial moves.
+    ckpt = tmp_path / "init.pth"
+    torch.save(build_depth_model("vitt", device="cpu").state_dict(), ckpt)
+    base = _test_cli(ttest.main, simcol, tmp_path, monkeypatch, ckpt,
+                     "base", "--device", "cpu")
+    got = _test_cli(ttest.main, simcol, tmp_path, monkeypatch, ckpt,
+                    "dial", "--device", "cpu", dial)
+    for key in ("d1", "abs_rel", "rmse", "l1"):
+        assert np.isfinite(got["overall_metrics"][key]["mean"])
+    assert got["overall_metrics"]["rmse"]["mean"] != \
+        base["overall_metrics"]["rmse"]["mean"]
+    with pytest.raises(SystemExit, match="apply to inference and "
+                       "test_depth.*ROADMAP, \"Speed dials\""):
+        ttrain.main(_overrides(simcol) + ["--device", "cpu", dial])
+
+
 def test_train_then_test_on_its_checkpoint(simcol, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("E3D_CONFIG_ROOT", CONFIG_ROOT)

@@ -2,7 +2,8 @@
 PyYAML, cv2 or PIL (its own YAML subset, codecs and writers take their
 place); ``train_pose --device cpu``, a vitg block, ``pointcloud --device
 cpu`` (fusion, the port's own mesher build, the FFT Poisson mesh) and
-``video_to_images`` with a YAML config run without them."""
+``video_to_images`` with a YAML config, and a vitt forward on the speed
+dials run without them."""
 
 import os
 import subprocess
@@ -28,7 +29,8 @@ MODULES = (
     "losses.silog", "media.colormap", "media.imageio", "media.native",
     "media.video", "models.convert", "models.depth_anything",
     "models.dinov2", "models.dpt", "models.resnet_pose", "ops.attention",
-    "ops.augment", "ops.flash_attention", "ops.quaternion", "ops.resize",
+    "ops.augment", "ops.flash_attention", "ops.quant", "ops.quaternion",
+    "ops.resize", "ops.token_merge",
     "recon", "recon.native", "recon.ply", "recon.pointcloud",
     "recon.poisson", "recon.stages", "serving.engine", "train.depth_task", "train.loop", "train.optim",
     "train.pose_task", "utils.cbuild", "utils.experiment",
@@ -94,6 +96,15 @@ with tempfile.TemporaryDirectory() as tmp:
     block = dinov2.Block(arch["embed_dim"], arch["num_heads"], arch["ffn"])
     out = block(torch.randn(1, 5, arch["embed_dim"]))
     assert out.shape == (1, 5, 1536) and bool(torch.isfinite(out).all())
+
+    # The speed dials: a vitt forward with int8 and token merging.
+    from {PORT}.models import depth_anything
+    model = depth_anything.build_depth_model("vitt", device="cpu",
+                                             quant_int8=True,
+                                             token_merge=0.25)
+    with torch.no_grad():
+        depth = model(torch.randn(1, 56, 56, 3))
+    assert depth.shape == (1, 56, 56) and bool(torch.isfinite(depth).all())
 
     # Reconstruction: the fixture's depths as predictions, fused and
     # meshed on the CPU; frames of an AVI through a YAML config.

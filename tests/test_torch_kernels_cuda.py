@@ -14,6 +14,8 @@ where the plain version rounds the normalised ones, so a few bf16 ulps at
 (1e-3). The backward kernels round P and dS to bf16 before the products
 that consume them, the plain backward computes in f32 from the same bf16
 inputs: their largest difference may be 2e-2 of the largest |gradient|.
+The int8 passes Q1 and Q2 and the int8 conv's int32 accumulator are
+exact: they must equal their plain versions bit for bit.
 """
 
 import pytest
@@ -726,3 +728,148 @@ def test_poisson_mesh_on_card_matches_cpu(sparse, card, monkeypatch):
     spacing = float((pts.max(0) - pts.min(0)).max()) * 1.1 / 127
     assert cKDTree(cpu_v).query(gpu_v)[0].max() <= 0.05 * spacing
     assert cKDTree(gpu_v).query(cpu_v)[0].max() <= 0.05 * spacing
+
+
+# ------------------------------------------- the speed dials (Q1, Q2)
+
+
+def _rows(r, k, dtype, seed, card, scale=3.0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return (torch.randn((r, k), generator=gen, device=card) * scale).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r,k", [(10960, 1024), (300, 4096), (17, 64),
+                                 (3, 8192), (2, 37 * 37 * 256 + 64)])
+def test_quantize_int8_matches_plain_bit_for_bit(r, k, dtype, card):
+    """Q1 on token and weight rows (one block a row) and on long rows
+    (a whole image of a decoder conv: two passes), per-row scales and a
+    given frozen scale, with a strided row view."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant
+
+    x = _rows(r, k, dtype, r + k, card)
+    x[0] = 0  # the 1e-8 floor
+    before = quant.quantize_int8.launches
+    q, s = quant.quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quant.quantize_int8.launches == before + 1
+    rq, rs = quant.quantize_int8_reference(x)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    given = torch.tensor([2.5 / 127], device=card)
+    q, s = quant.quantize_int8(x, given)
+    assert torch.equal(q, quant.quantize_int8_reference(x, given)[0])
+    assert s is given
+    if k >= 16:
+        view = x[:, 8:]  # rows at a stride of k, not k - 8
+        assert torch.equal(quant.quantize_int8(view)[0],
+                           quant.quantize_int8_reference(view)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cast_first", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dequantize_int32_matches_plain_bit_for_bit(dtype, cast_first, card):
+    """Q2 on a dense accumulator (per-row scales, bias) and on a strided
+    crop of a padded conv accumulator (per-image scales, no bias)."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    acc = torch.randint(-2**22, 2**22, (10960, 3072), generator=gen,
+                        device=card, dtype=torch.int32)
+    xs = torch.rand(10960, generator=gen, device=card) * 1e-2
+    ws = torch.rand(3072, generator=gen, device=card) * 1e-2
+    bias = torch.randn(3072, generator=gen, device=card)
+    before = quant.dequantize_int32.launches
+    out = quant.dequantize_int32(acc, xs, ws, bias, dtype, cast_first)
+    torch.cuda.synchronize()
+    assert quant.dequantize_int32.launches == before + 1
+    assert torch.equal(out, quant.dequantize_int32_reference(
+        acc, xs, ws, bias, dtype, cast_first))
+    crop = torch.randint(-2**22, 2**22, (8, 39, 39, 264), generator=gen,
+                         device=card, dtype=torch.int32)[:, :37:2, :37:2,
+                                                         :256]
+    out = quant.dequantize_int32(crop, xs[:8], ws[:256], None, dtype)
+    assert out.shape == (8, 19, 19, 256) and out.is_contiguous()
+    assert torch.equal(out, quant.dequantize_int32_reference(
+        crop, xs[:8], ws[:256], None, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k,stride,padding", [
+    ((2, 37, 37, 256), 3, 1, 1), ((2, 37, 37, 1024), 3, 2, 1),
+    ((2, 19, 19, 256), 1, 1, 0)])
+def test_int8_conv_accumulator_matches_f64_plain(shape, k, stride, padding,
+                                                 card):
+    """The tap form of the int8 conv (int_mm over row slices of the padded
+    input, summed in int32) equals the f64 plain convolution exactly, and
+    the whole int8 conv equals its CPU run."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    xq = torch.randint(-127, 128, shape, generator=gen, device=card,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (256, k, k, shape[3]), generator=gen,
+                       device=card, dtype=torch.int8)
+    acc = quant.conv_acc(xq, wq, stride, padding)
+    assert torch.equal(acc, quant.conv_acc_reference(xq, wq, stride,
+                                                     padding))
+    x = torch.randn((shape[0], shape[3], *shape[1:3]), generator=gen,
+                    device=card).to(memory_format=torch.channels_last)
+    w = torch.randn((256, shape[3], k, k), generator=gen, device=card) * 0.05
+    b = torch.randn(256, generator=gen, device=card)
+    with torch.no_grad():
+        got = quant.int8_conv(x.bfloat16(), w, b, stride, padding)
+        want = quant.int8_conv(x.bfloat16().cpu(), w.cpu(), b.cpu(), stride,
+                               padding)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_int_mm_transposed_operand_and_cpu_agree(card):
+    """torch._int_mm on the card with mat2 as the transpose of a row-major
+    (N, K) weight (the layout the port passes) and as a row-major (K, N)
+    copy: both equal the CPU's int32 product."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = torch.randint(-127, 128, (300, 1024), generator=gen, device=card,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (768, 1024), generator=gen, device=card,
+                      dtype=torch.int8)
+    want = torch._int_mm(a.cpu(), w.cpu().t())
+    assert torch.equal(quant.int_mm(a, w.t()).cpu(), want)
+    assert torch.equal(quant.int_mm(a, w.t().contiguous()).cpu(), want)
+    with pytest.raises(ValueError, match="M > 16"):
+        quant.int_mm(a[:16], w.t())
+
+
+@pytest.mark.cuda
+def test_speed_dials_on_card(card):
+    """vitl-width blocks are too big for a unit test: a vits model at 98
+    px with both dials. The merged forward repeats bit for bit from call
+    to call (the merge has no atomics); the int8 forward launches Q1 and
+    Q2 once per site (twice Q1: weights and activations) and K1 once per
+    block, and the quantized ops raise under autograd."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant
+
+    model = tda.build_depth_model("vits", device="cuda", quant_int8=True,
+                                  token_merge=0.3)
+    x = torch.randn((2, 98, 98, 3), device=card,
+                    generator=torch.Generator(device=card).manual_seed(0))
+    q1, q2, k1 = (quant.quantize_int8.launches,
+                  quant.dequantize_int32.launches, flash_attention.launches)
+    with torch.no_grad():
+        a = model(x)
+        b = model(x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    # vits: 12 blocks x (qkv, proj, fc1, fc2), and the DPT convs with both
+    # widths >= 128: projects 2 and 3 (384 -> 192, 384) and the stride-2
+    # resize (384 -> 384); features 64 keep the rest out.
+    sites = 12 * 4 + 3
+    assert quant.dequantize_int32.launches - q2 == 2 * sites
+    assert quant.quantize_int8.launches - q1 == 2 * 2 * sites
+    assert flash_attention.launches - k1 == 2 * 12
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(x)

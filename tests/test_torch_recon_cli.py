@@ -157,12 +157,28 @@ def test_pointcloud_model_matches_the_jax_cli(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--int8"], ["--token-merge", "0.3"]])
-def test_pointcloud_model_refuses_speed_dials(tree, flags, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tpointcloud_model.main(["-i", str(tree), "-o", str(tmp_path / "o"),
-                                "--device", "cpu"] + flags)
-    assert exc.value.code == 2
-    assert 'ROADMAP, "Speed dials"' in capsys.readouterr().err
+def test_pointcloud_model_refuses_speed_dials(tree, flags, tmp_path):
+    """``--int8`` and ``--token-merge``, refused until the port had them,
+    now run: a cloud per frame, finite and within max depth + 1 of the
+    camera (the CLI's truncation), moved away from the default run's.
+    ``--int8-calib`` stays unknown here, as in the JAX CLI."""
+    args = ["-i", str(tree), "--encoder", "vitt", "--input-size", "42",
+            "--max-frames", "2", "--device", "cpu"]
+    tpointcloud_model.main(args + ["-o", str(tmp_path / "default")])
+    result = tpointcloud_model.main(args + ["-o", str(tmp_path / "dial")]
+                                    + flags)
+    names = sorted(os.listdir(tmp_path / "dial"))
+    assert result["frames"] == 2 and names == sorted(
+        os.listdir(tmp_path / "default"))
+    moved = False
+    for name in names:
+        points, _ = _cloud(tmp_path / "dial" / name)
+        base, _ = _cloud(tmp_path / "default" / name)
+        assert len(points) > 100 and np.isfinite(points).all()
+        assert points[:, 2].min() >= 0.0 and points[:, 2].max() <= 21.0
+        moved |= points.shape != base.shape or not np.array_equal(points,
+                                                                   base)
+    assert moved
     with pytest.raises(SystemExit):  # no --int8-calib: the JAX CLI has none
         tpointcloud_model.main(["-i", str(tree), "-o", "o",
                                 "--int8-calib", "1"])

@@ -124,13 +124,24 @@ def test_frame_window_and_fps(fixture_dir):
 
 @pytest.mark.parametrize("flags", [["--int8"], ["--token-merge", "0.3"],
                                    ["--int8", "--int8-calib", "2"]])
-def test_unported_flags_exit_with_an_error(fixture_dir, flags, capsys):
-    out = str(fixture_dir / "never.avi")
-    with pytest.raises(SystemExit) as exc:
-        tvd.main(_args(fixture_dir, out, *flags, "--device", "cpu"))
-    assert exc.value.code == 2
-    assert 'ROADMAP, "Speed dials"' in capsys.readouterr().err
-    assert not os.path.exists(out)
+def test_unported_flags_exit_with_an_error(fixture_dir, flags, tmp_path):
+    """The speed dials, refused until the port had them, now run through
+    the engine: every frame written, each depth map finite and in [0,
+    max_depth], and moved away from the default run's."""
+    runs = {}
+    for name, extra in (("default", []), ("dial", flags)):
+        out = str(tmp_path / f"{name}.avi")
+        depths = {}
+        result = tvd.main(_args(fixture_dir, out, *extra, "--device", "cpu"),
+                          on_depth=depths.__setitem__)
+        assert result["frames"] == 6 and _decoded(out)[1].shape[0] == 6
+        runs[name] = depths
+    for i, depth in runs["dial"].items():
+        assert depth.shape == (64, 64) and np.isfinite(depth).all()
+        assert depth.min() >= 0.0 and depth.max() <= 20.0
+    assert sorted(runs["dial"]) == list(range(6))
+    assert any(not np.array_equal(runs["dial"][i], runs["default"][i])
+               for i in range(6))
 
 
 def test_non_mjpeg_input_raises(fixture_dir, tmp_path):
