@@ -86,7 +86,29 @@ port's paths at vitl width with seeded random weights:
   scope at batch 8 and 64, ``DepthServingEngine`` with calibration (and
   a held single batch resolved without ``close()``), and
   ``cli.infer.main`` once per dial on the infer phase's 32 frames. Every
-  other phase holds Q1 and Q2 to 0 launches.
+  other phase holds Q1 and Q2 to 0 launches;
+- the kernels as ``torch.library`` ops: phase "dispatch" times each op's
+  host cost a call against the direct launch, and phases "throughput"
+  and "serve CLI" serve with the launches called both ways, in turns;
+- export (phase "export"): ``cli.export_model.main --check`` at vitl,
+  475x475 frames, batch 8, 518 px (seconds, artifact bytes against
+  vitl's parameter bytes, no weight in it), the replay of the serve CLI
+  phase's 32 frames through ``exported_runner`` and through
+  ``cli.serve.main --from-export --once`` against a live
+  ``BatchedRunner`` (within 1e-3 of max|live|), K1 24 a replayed batch
+  counted inside the ops, device ms and kernel ms against the live
+  program, an ``--int8 --int8-calib 2`` artifact (its amax equal to a
+  live calibration's; Q1 248, Q2 124 a batch), one exported under
+  ``E3D_PALLAS_RESIZE`` (K6 5 a batch with the knob off again), and
+  fault 3.1's order: export, then the live program, in one process;
+- distillation (phase "distill"): ``cli.train_depth.main`` with a vits
+  student and a vitl teacher from a checkpoint the phase saves (518 px,
+  microbatch 8, accum 2, two steps): ``Train/train_distill`` logged and
+  finite, the launches reckoned in advance, and ``distill_weight=0``
+  giving the plain step's loss bit for bit;
+- NaN checks (phase "nan"): ``nan_checks`` names block 3's op for a NaN
+  weight in a vitl forward and raises on a NaN made in the backward, both
+  run through without it, and a vitl step is timed with and without it.
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -619,6 +641,12 @@ def phase_plain(model, frames) -> None:
 
 
 def phase_throughput(model, frames, k1_ms: float, smi: str) -> None:
+    """Served frames/s at batch 8: the BatchedRunner loop, the device
+    forward (CUDA events) and the engine over a burst of 96 frames; the
+    runner loop and the engine also with the launches called directly,
+    past the ops' dispatcher (``_DirectLaunches``), in turns (direct, ops,
+    ops, direct), with each run's host share (1 - the device forward's
+    time over the wall)."""
     import numpy as np
     import torch
 
@@ -629,28 +657,39 @@ def phase_throughput(model, frames, k1_ms: float, smi: str) -> None:
     runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
     for _ in range(2):
         runner(batch)
-    torch.cuda.synchronize()
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        runner(batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / iters * 1e3
-
     x = torch.from_numpy(np.stack(batch)).cuda()
     dev_ms = _cuda_ms(lambda: da._run_batched_u8(
         model, x, runner.net_hw, FRAME_HW), iters=10, warmup=2)
+    stream = frames * 4
 
-    with engine_mod.DepthServingEngine(model, batch_size=BATCH) as engine:
-        for f in engine.submit_many(frames):
-            f.result(timeout=600)
-        engine.reset_stats()
-        stream = frames * 4
+    def measure():
+        torch.cuda.synchronize()
+        iters = 10
         t0 = time.perf_counter()
-        for f in engine.submit_many(stream):
-            f.result(timeout=600)
-        serve_s = time.perf_counter() - t0
-        stats = engine.stats()
+        for _ in range(iters):
+            runner(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        with engine_mod.DepthServingEngine(model,
+                                           batch_size=BATCH) as engine:
+            for f in engine.submit_many(frames):
+                f.result(timeout=600)
+            engine.reset_stats()
+            t0 = time.perf_counter()
+            for f in engine.submit_many(stream):
+                f.result(timeout=600)
+            serve_s = time.perf_counter() - t0
+            stats = engine.stats()
+        return ms, serve_s, stats
+
+    runs = {}
+    for label in ("direct", "ops", "ops ", "direct "):
+        if label.startswith("direct"):
+            with _DirectLaunches():
+                runs[label] = measure()
+        else:
+            runs[label] = measure()
+    ms, serve_s, stats = runs["ops"]
     print(f"throughput, vitl 518 px, batch {BATCH}, {smi}:")
     print(f"  BatchedRunner (u8 upload, forward, f32 readback): "
           f"{ms:.2f} ms/batch, {BATCH / ms * 1e3:.2f} frames/s")
@@ -661,6 +700,14 @@ def phase_throughput(model, frames, k1_ms: float, smi: str) -> None:
           f"{len(stream) / serve_s:.2f} frames/s, latency p50 "
           f"{stats['latency_p50_ms']:.1f} ms, p99 "
           f"{stats['latency_p99_ms']:.1f} ms")
+    for label, (ms, serve_s, stats) in runs.items():
+        engine_dev = stats["batches"] * dev_ms / 1e3
+        print(f"  launches {label.strip():6s}: BatchedRunner {ms:.2f} "
+              f"ms/batch "
+              f"(host share {max(0.0, 1 - dev_ms / ms):.3f}); engine "
+              f"{len(stream) / serve_s:.2f} frames/s (host share "
+              f"{max(0.0, 1 - engine_dev / serve_s):.3f}, in the runner "
+              f"{stats['runner_seconds']:.2f} of {serve_s:.2f} s)")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
 
@@ -1026,8 +1073,11 @@ def phase_bwd(fused: bool) -> dict:
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     name = "K2" if fused else "K3"
-    wrapper = (fa.flash_attention_bwd_fused if fused
-               else fa.flash_attention_bwd_split)
+
+    def wrapper(*args):
+        """The training path's call: the backward op, whose packed dqkv
+        the kernels fill (``flash_attention_qkv_backward``)."""
+        return fa._bwd_op(*args, fused)
 
     def case(shape, seed):
         q, k, v = _attention_case(*shape, seed)
@@ -1035,14 +1085,12 @@ def phase_bwd(fused: bool) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(seed + 100)
         do = torch.randn(q.shape, generator=gen, device="cuda",
                          dtype=torch.bfloat16)
-        grads = torch.empty((*shape[:2], 3, *shape[2:]), device="cuda",
-                            dtype=torch.bfloat16).unbind(2)
-        return (q, k, v, o, lse, do), grads
+        return q, k, v, o, lse, do
 
     errs = {}
     for shape, seed in ((FLAGSHIP, 0), ((3, 130, 5, 32), 1)):
-        args, grads = case(shape, seed)
-        wrapper(*args, *grads)
+        args = case(shape, seed)
+        grads = wrapper(*args).unbind(2)
         torch.cuda.synchronize()
         ref = fa.flash_attention_bwd_reference(*args)
         abs_err = max((g.float() - r.float()).abs().max().item()
@@ -1061,8 +1109,8 @@ def phase_bwd(fused: bool) -> dict:
         del args, grads, ref
 
     b, n, h, d = FLAGSHIP
-    args, grads = case(FLAGSHIP, 0)
-    ms = _cuda_ms(lambda: wrapper(*args, *grads), iters=20)
+    args = case(FLAGSHIP, 0)
+    ms = _cuda_ms(lambda: wrapper(*args), iters=20)
     plain_ms = _cuda_ms(lambda: fa.flash_attention_bwd_reference(*args),
                         iters=3, warmup=1)
     q, k, v, o, lse, do = args
@@ -1078,13 +1126,13 @@ def phase_bwd(fused: bool) -> dict:
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(flop_ms, byte_ms)
-    print(f"{name} {FLAGSHIP}: wrapper {ms:.4f} ms per launch, plain "
+    print(f"{name} {FLAGSHIP}: op {ms:.4f} ms per launch, plain "
           f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
           f"MB), {flops / ms / 1e9:.1f} TFLOP/s")
     # What the wrapper's time is made of: each of its three kernels.
-    kernels = _profiled(lambda: wrapper(*args, *grads), 5,
-                        f"{name} wrapper at {FLAGSHIP}")
+    kernels = _profiled(lambda: wrapper(*args), 5,
+                        f"{name} op at {FLAGSHIP}")
     parts = {part: sum(e.self_device_time_total for e in kernels
                        if key in e.key) / 5 / 1e3
              for part, key in BWD_PARTS.items()}
@@ -1254,6 +1302,20 @@ def _fit(data, fused: bool, max_steps=None):
 
     task = dt.DepthTask("vitl", total_steps=4, grad_accum=ACCUM,
                         device="cuda")
+    # Each optimizer step's wall on the host clock, synced at both ends:
+    # the first against the steady ones.
+    task.step_ms = []
+    step = task.train_step
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        task.step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    task.train_step = timed_step
     knob = fa._BWD_FUSED
     fa._BWD_FUSED = fused
     try:
@@ -1273,6 +1335,7 @@ def _fit(data, fused: bool, max_steps=None):
             records = _read_log(log_dir)
     finally:
         fa._BWD_FUSED = knob
+        del task.train_step
     return task, state, counts, records, seconds
 
 
@@ -1318,6 +1381,12 @@ def phase_train(data, smi: str) -> tuple:
           f" ms; {frames / (step_s * steps):.2f} frames/s trained; "
           f"{frames / seconds:.2f} frames/s over the whole fit; peak device "
           f"memory {peak:.2f} GiB")
+    first, rest = task.step_ms[0], task.step_ms[1:]
+    print(f"  first optimizer step {first:.1f} ms (the first backward's "
+          f"cuBLAS/cuDNN set-up; the kernels were built in phase build), "
+          f"steady {sum(rest) / len(rest):.1f} ms (host clock, synced; "
+          f"{[round(t, 1) for t in rest]}): what a train-step export "
+          f"could save a restarted fine-tune")
     if counts != want:
         raise AssertionError(f"train: launches {counts}, want {want}")
     if state.step != steps or len(train) != steps or len(val) != 1 \
@@ -1634,6 +1703,31 @@ def phase_serve_cli(paths, plain, f32, tmp: str, smi: str) -> dict:
     maps = np.stack([np.load(os.path.join(outdir, f"{n}.npy"))
                      for n in names])
     _check_maps_relative("serve CLI", maps, plain, f32)
+
+    # The same run with the launches called directly, past the ops'
+    # dispatcher, in turns: frames/s and host share (1 - the engine's
+    # time in its runner over the wall of main()).
+    def timed(label, direct):
+        out = os.path.join(tmp, f"served_{label}")
+        t0 = time.perf_counter()
+        if direct:
+            with _DirectLaunches():
+                res, _ = _captured(serve.main, [
+                    "-i", indir, "-o", out, "--encoder", "vitl",
+                    "--batch-size", str(BATCH), "--once"])
+        else:
+            res, _ = _captured(serve.main, [
+                "-i", indir, "-o", out, "--encoder", "vitl",
+                "--batch-size", str(BATCH), "--once"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = res["stats"]["runner_seconds"]
+        print(f"  serve CLI, launches {'direct' if direct else 'ops'}: "
+              f"{res['served'] / wall:.2f} frames/s, host share "
+              f"{1 - busy / wall:.3f} (runner {busy:.2f} of {wall:.2f} s)")
+
+    for i, direct in enumerate((True, False, True)):
+        timed(f"t{i}", direct)
     return counts
 
 
@@ -2862,6 +2956,516 @@ def phase_dials(model, frames, cli_paths, cli_plain, cli_f32, tmp: str,
     return counts_by_path
 
 
+# ------------------------------------------ the kernels as torch ops
+
+# Each op, and the function its CUDA kernel runs: the launch as it was
+# called before the kernels became ``torch.library`` ops.
+OPS = (("ops.flash_attention", "_fwd_op", "_fwd_cuda"),
+       ("ops.flash_attention", "_bwd_op", "_bwd_cuda"),
+       ("ops.resize", "_lerp_op", "_lerp_cuda"),
+       ("ops.quant", "_quantize_op", "_quantize_cuda"),
+       ("ops.quant", "_dequantize_op", "_dequantize_cuda"))
+
+
+class _DirectLaunches:
+    """Route the public functions past the dispatcher, straight to the
+    ops' CUDA kernels (the ``ctypes`` launches as they were called before
+    the kernels were ops): the yardstick of the ops' host cost. The
+    launches and their counts are the same; only the dispatch differs."""
+
+    def __enter__(self):
+        self.saved = []
+        for mod, op, fn in OPS:
+            m = importlib.import_module(f"{PKG}.{mod}")
+            self.saved.append((m, op, getattr(m, op)))
+            setattr(m, op, getattr(m, fn))
+
+    def __exit__(self, *exc):
+        for m, op, orig in self.saved:
+            setattr(m, op, orig)
+
+
+def phase_dispatch(smi: str) -> dict[str, float]:
+    """Host microseconds a call of each op against its direct launch, at
+    tiny shapes (the card keeps up, so the wall is the host's), in turns:
+    direct, op, op, direct. Returns the op's extra microseconds by
+    kernel."""
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    quant = importlib.import_module(f"{PKG}.ops.quant")
+    q, k, v = _attention_case(1, 64, 2, 64, 7)
+    o, lse = fa.flash_attention(q, k, v)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x6 = torch.randn((1, 128, 8, 8), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    rows = torch.randn((16, 256), generator=gen, device="cuda")
+    acc = torch.randint(-99, 99, (16, 64), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    xs, ws = torch.rand(16, device="cuda"), torch.rand(64, device="cuda")
+    cases = {
+        "K1": (fa._fwd_op, fa._fwd_cuda, (q, k, v, "K1")),
+        "K2": (fa._bwd_op, fa._bwd_cuda, (q, k, v, o, lse, o, True)),
+        "K6": (rz._lerp_op, rz._lerp_cuda, (x6, 9, 9)),
+        "Q1": (quant._quantize_op, quant._quantize_cuda, (rows, None)),
+        "Q2": (quant._dequantize_op, quant._dequantize_cuda,
+               (acc, xs, ws, None, torch.bfloat16, False)),
+    }
+
+    def host_us(fn, args, n=400):
+        for _ in range(20):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    extra = {}
+    for name, (op, direct, args) in cases.items():
+        d1, o1, o2, d2 = (host_us(fn, args)
+                          for fn in (direct, op, op, direct))
+        extra[name] = (o1 + o2 - d1 - d2) / 2
+        print(f"dispatch {name}: direct launch {d1:.2f} / {d2:.2f} us a "
+              f"call, through the op {o1:.2f} / {o2:.2f} us: "
+              f"{extra[name]:+.2f} us a call (host, {smi})")
+    return extra
+
+
+# ------------------------------------------------------------- export
+
+EXPORT_CACHES = (("ops.resize", "_device_matrix"),
+                 ("ops.resize", "_device_taps"),
+                 ("models.dinov2", "_bicubic_tensor"))
+
+
+def _export_cli(tmp: str, name: str, *extra: str) -> tuple:
+    """``cli.export_model.main`` at vitl, 475x475 frames, batch 8, 518 px,
+    on the card, with ``--check``: (metadata, artifact path, seconds)."""
+    import os
+
+    export_model = importlib.import_module(f"{PKG}.cli.export_model")
+    path = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    meta, text = _captured(export_model.main, [
+        "--encoder", "vitl", "--frame-hw", *map(str, FRAME_HW),
+        "--batch-size", str(BATCH), "-o", path, "--check", *extra])
+    seconds = time.perf_counter() - t0
+    if "replay check: max |exported - live|" not in text:
+        raise AssertionError(f"export {name}: no replay check in {text}")
+    return meta, path, seconds
+
+
+def _batches_rgb01(bgr: list):
+    import torch
+
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    return [torch.from_numpy(a).cuda() for a, _ in da.chunk_rgb01(bgr,
+                                                                  BATCH)]
+
+
+def _replay_rule(label: str, got, want) -> float:
+    """The export rule: within 1e-3 of max|live| everywhere."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    dist = float(np.abs(got - want).max())
+    limit = 1e-3 * float(np.abs(want).max())
+    print(f"  {label}: max|replay - live| {dist:.3e} m (limit {limit:.3e},"
+          f" 1e-3 of max|live|)")
+    if not np.isfinite(got).all() or dist > limit:
+        raise AssertionError(f"{label}: replay {dist} from live, limit "
+                             f"{limit}")
+    return dist
+
+
+def phase_export(bgr: list, indir: str, tmp: str, smi: str
+                 ) -> dict[str, dict[str, int]]:
+    """Export and replay of the serving program (``cli.export_model``,
+    ``serve --from-export``) at vitl, 475x475 frames, batch 8, 518 px, on
+    the card: the artifact's size and contents, the replay of the serve
+    CLI phase's 32 frames through ``exported_runner`` and through
+    ``cli.serve.main --from-export`` against a live ``BatchedRunner``,
+    the launches a replayed batch counts inside the ops, device ms a
+    batch against the live program, an ``--int8 --int8-calib 2``
+    artifact, one exported under ``E3D_PALLAS_RESIZE`` (K6 fixed into
+    it), and fault 3.1's order (export, then the live program, in one
+    process). Returns the launches by path."""
+    import os
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    ex = importlib.import_module(f"{PKG}.serving.export")
+    quant = importlib.import_module(f"{PKG}.ops.quant")
+    serve = importlib.import_module(f"{PKG}.cli.serve")
+    export_model = importlib.import_module(f"{PKG}.cli.export_model")
+
+    # The CLIs' model: the seeded vitl init.
+    model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                 seed=0)
+    params = model.state_dict()
+    param_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    net_hw = da._lower_bound_hw(*FRAME_HW, 518)
+    live = np.stack(da.BatchedRunner(model, FRAME_HW, 518, BATCH)(bgr))
+    batches = _batches_rgb01(bgr)
+
+    # Fault 3.1's order: a live batch, the device caches emptied as in a
+    # fresh process, the export, the live batch again.
+    before = da._run_batched(model, batches[0], net_hw, FRAME_HW)
+    for mod, name in EXPORT_CACHES:
+        getattr(importlib.import_module(f"{PKG}.{mod}"), name).cache_clear()
+    meta, path, export_s = _export_cli(tmp, "vitl.pt2")
+    after = da._run_batched(model, batches[0], net_hw, FRAME_HW)
+    fake = importlib.import_module("torch._subclasses.fake_tensor")
+    real = (type(after) is torch.Tensor and after.is_cuda
+            and not fake.is_fake(after))
+    print(f"export: cli.export_model --check, vitl {FRAME_HW} batch {BATCH} "
+          f"518 px on {meta['platforms']} ({meta['forward_schedule']}): "
+          f"{export_s:.2f} s through main() (model init, trace, save, "
+          f"replay and live check); artifact {meta['artifact_bytes']} "
+          f"bytes = {meta['artifact_bytes'] / param_bytes:.5f} of vitl's "
+          f"{param_bytes} parameter bytes; {smi}")
+    print(f"  live after the export: {type(after).__name__} on "
+          f"{after.device}, equal to the run before it: "
+          f"{torch.equal(before, after)}")
+    if not real or not torch.equal(before, after):
+        raise AssertionError("export: the live program after an export "
+                             "is not the one before it (fault 3.1)")
+    prog = ex.load_exported(path)
+    ep = prog.program
+    leaked = [k for k, c in ep.constants.items() for p in params.values()
+              if c.shape == p.shape and torch.equal(c.to(p.device), p)]
+    if (meta["artifact_bytes"] >= 0.01 * param_bytes or ep.state_dict
+            or ep.example_inputs is not None or leaked
+            or set(ep.constants) & set(meta["param_manifest"])):
+        raise AssertionError(f"export: the artifact holds weights "
+                             f"({meta['artifact_bytes']} bytes, state "
+                             f"{list(ep.state_dict)[:3]}, {leaked[:3]})")
+
+    # Replay of the 32 frames: runner, counts, maps, device ms.
+    run = ex.exported_runner(prog, params)
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    replay = np.stack(run(bgr))
+    torch.cuda.synchronize()
+    counts = {"export": _video_counts(fa, rz)}
+    n_batches = len(batches)
+    want = _want(K1=BLOCKS * n_batches)
+    print(f"  exported_runner on {len(bgr)} frames ({n_batches} batches): "
+          f"launches {counts['export']} (want {want})")
+    if counts["export"] != want:
+        raise AssertionError(f"export replay: launches {counts['export']}")
+    _replay_rule("exported_runner vs BatchedRunner", replay, live)
+    x = batches[0]
+    replay_ms = _cuda_ms(lambda: prog(params, x), iters=10, warmup=2)
+    live_ms = _cuda_ms(lambda: da._run_batched(model, x, net_hw, FRAME_HW),
+                       iters=10, warmup=2)
+    print(f"  device ms a batch (CUDA events): replay {replay_ms:.2f}, "
+          f"live {live_ms:.2f} ({smi})")
+    busy = {}
+    for label, fn in (("replay", lambda: prog(params, x)),
+                      ("live", lambda: da._run_batched(model, x, net_hw,
+                                                       FRAME_HW))):
+        events = _profiled(fn, 3, f"export {label}, vitl batch {BATCH}")
+        busy[label] = sum(e.self_device_time_total for e in events) / 3e3
+    print(f"  kernel ms a batch (torch.profiler): replay "
+          f"{busy['replay']:.2f}, live {busy['live']:.2f}")
+
+    # serve --from-export on the serve CLI phase's folder.
+    out = os.path.join(tmp, "served_export")
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    t0 = time.perf_counter()
+    result, _ = _captured(serve.main, [
+        "-i", indir, "-o", out, "--encoder", "vitl", "--batch-size",
+        str(BATCH), "--once", "--save-numpy", "--from-export", path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts["export_serve_cli"] = _video_counts(fa, rz)
+    stats = result["stats"]
+    want = _want(K1=BLOCKS * stats["batches"])
+    names = sorted(f[:-4] for f in os.listdir(out) if f.endswith(".npy"))
+    served = np.stack([np.load(os.path.join(out, f"{n}.npy"))
+                       for n in names])
+    print(f"  serve --from-export --once: {result['served']} frames in "
+          f"{stats['batches']} batches, {seconds:.2f} s through main(): "
+          f"{result['served'] / seconds:.2f} frames/s; launches "
+          f"{counts['export_serve_cli']} (want {want})")
+    if counts["export_serve_cli"] != want or result["served"] != len(bgr):
+        raise AssertionError(f"serve --from-export: {result}")
+    _replay_rule("serve --from-export vs BatchedRunner", served, live)
+
+    # The calibrated int8 artifact: amax, replay, launches per batch.
+    meta8, path8, export8_s = _export_cli(
+        tmp, "vitl_int8.pt2", "--int8", "--int8-calib", "2",
+        "--calib-frames", indir)
+    model8 = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                  seed=0, quant_int8=True)
+    program8 = ex._program(model8, net_hw, FRAME_HW)
+    amax = quant.calibrate_scales(
+        lambda b: program8(params, b),
+        _batches_rgb01(export_model._load_calib_frames(indir, 2 * BATCH)))
+    live_amax = [float(a) for a in amax.cpu().numpy()]
+    print(f"export --int8 --int8-calib 2: {export8_s:.2f} s, "
+          f"{meta8['artifact_bytes']} bytes; {len(live_amax)} sites, "
+          f"sidecar amax equal to the live calibration's: "
+          f"{meta8['int8_calib_amax'] == live_amax}")
+    if meta8["int8_calib_amax"] != live_amax:
+        raise AssertionError("export int8: the sidecar's amax is not the "
+                             "live calibration's")
+    prog8 = ex.load_exported(path8)
+    frozen = ex._Program(model8, net_hw, FRAME_HW, amax)
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    replay8 = torch.cat([prog8(params, b) for b in batches]).cpu()
+    torch.cuda.synchronize()
+    counts["export_int8"] = _video_counts(fa, rz)
+    want = _want(K1=BLOCKS * n_batches, Q1=248 * n_batches,
+                 Q2=124 * n_batches)
+    print(f"  int8 replay of {n_batches} batches: launches "
+          f"{counts['export_int8']} (want {want})")
+    if counts["export_int8"] != want:
+        raise AssertionError(f"export int8: {counts['export_int8']}")
+    live8 = torch.cat([frozen(params, b) for b in batches]).cpu()
+    _replay_rule("int8 replay vs frozen-scale live program",
+                 replay8.numpy(), live8.numpy())
+    del model8, program8, frozen, prog8
+
+    # K6 fixed into an artifact exported under E3D_PALLAS_RESIZE; the
+    # replay takes it with the knob off again.
+    with _Knobs({"_PALLAS_RESIZE": True}):
+        meta6, path6, _ = _export_cli(tmp, "vitl_k6.pt2")
+    prog6 = ex.load_exported(path6)
+    torch.cuda.synchronize()
+    _video_counts(fa, rz, zero=True)
+    replay6 = prog6(params, x)
+    torch.cuda.synchronize()
+    counts["export_k6"] = _video_counts(fa, rz)
+    want = _want(K1=BLOCKS, K6=5)
+    print(f"export under E3D_PALLAS_RESIZE (sidecar pallas_resize "
+          f"{meta6['pallas_resize']}): one replayed batch with the knob "
+          f"off launches {counts['export_k6']} (want {want})")
+    if counts["export_k6"] != want or not meta6["pallas_resize"]:
+        raise AssertionError(f"export K6: {counts['export_k6']}")
+    with _Knobs({"_PALLAS_RESIZE": True}):
+        live6 = da._run_batched(model, x, net_hw, FRAME_HW)
+    _replay_rule("K6 artifact vs the live program on K6",
+                 replay6.cpu().numpy(), live6.cpu().numpy())
+    return counts
+
+
+# ----------------------------------------------------------- distill
+
+def phase_distill(cli_data: list, tmp: str, smi: str) -> dict[str, int]:
+    """``cli.train_depth.main`` distilling a vits student from a vitl
+    teacher (``trainer.distill_from``, a checkpoint this phase saves) on
+    the train_depth CLI phase's tree: 518 px, microbatch 8, accum 2, two
+    steps, 16-mixed, gradient checkpointing. ms a step, peak memory,
+    ``Train/train_distill`` finite and logged, the launches reckoned in
+    advance; then one ``DepthTask`` step with ``distill_weight=0`` against
+    the plain step from the same weights: the same loss, bit for bit.
+    Returns the CLI run's launches."""
+    import math
+    import os
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    pre = importlib.import_module(f"{PKG}.data.preprocess")
+    dino = importlib.import_module(f"{PKG}.models.dinov2")
+    train_depth = importlib.import_module(f"{PKG}.cli.train_depth")
+
+    teacher_path = os.path.join(tmp, "teacher_vitl.pth")
+    teacher = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                   seed=5)
+    torch.save(teacher.state_dict(), teacher_path)
+    del teacher
+    overrides = [o if o != "model=large" else "model=small"
+                 for o in cli_data] + [
+        f"trainer.accumulate_grad_batches={TRAIN_CLI_ACCUM}",
+        "++trainer.max_steps=2", f"trainer.distill_from={teacher_path}"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _video_counts(fa, rz, zero=True)
+        t0 = time.perf_counter()
+        out, _ = _captured(train_depth.main, overrides)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _video_counts(fa, rz)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        records = _read_log(os.path.join(tmp, out["run_dir"]))
+    finally:
+        os.chdir(cwd)
+    train = [r for r in records if "train_loss" in r]
+    val = [r for r in records if "val_loss" in r]
+    perf = next(r for r in records if "perf/step_time_mean_s" in r)
+    distill = [r.get("Train/train_distill") for r in train]
+    student = dino.VIT_ARCHS["vits"]["depth"]
+    microbatches = TRAIN_CLI_FRAMES // BATCH
+    val_batches = len(val) * -(-2 * TRAIN_CLI_FRAMES // BATCH)
+    # The teacher's forward (24 K1) on each microbatch; the student's
+    # forward and recompute (2 x 12 K1) and backward (12) as phase
+    # "train" counts vitl's; the student alone validates.
+    want = _want(K1=(BLOCKS + 2 * student) * microbatches
+                 + student * val_batches,
+                 **{_bwd_name(fa._BWD_FUSED): student * microbatches})
+    print(f"distill: train_depth, vits student, vitl teacher from "
+          f"{os.path.basename(teacher_path)}, 518 px, 16-mixed, gradient "
+          f"checkpointing, {microbatches} microbatches of {BATCH}, accum "
+          f"{TRAIN_CLI_ACCUM}: {len(train)} steps, {seconds:.2f} s through "
+          f"main(); per optimizer step (StepTimer) "
+          f"{perf['perf/step_time_mean_s'] * 1e3:.1f} ms; peak device "
+          f"memory {peak:.2f} GiB; {smi}; Train/train_distill {distill}; "
+          f"losses {[round(r['train_loss'], 5) for r in train]}; launches "
+          f"{counts} (want {want})")
+    if counts != want or len(train) != 2 or not all(
+            d is not None and math.isfinite(d) for d in distill):
+        raise AssertionError(f"distill: launches {counts}, want {want}; "
+                             f"records {train}")
+
+    # distill_weight=0 against the plain step, from the same weights.
+    data = SeededFrames(1, 0, BATCH, seed=4)
+    prep = pre.DevicePreprocessor(518, device="cuda")
+    one = prep(data.batches[0], train=False)
+    batch = {k: one[k][None] for k in ("image", "depth")}
+    student_sd = da.build_depth_model("vits", device="cuda",
+                                      seed=6).state_dict()
+    losses = []
+    for weight in (None, 0.0):
+        task = dt.DepthTask("vits", total_steps=4, grad_accum=1,
+                            device="cuda",
+                            distill_encoder=None if weight is None
+                            else "vitl", distill_weight=weight or 0.0)
+        if weight is not None:
+            task.set_teacher(torch.load(teacher_path))
+        state = task.init_state(0, pretrained_params=student_sd)
+        _, metrics = task.train_step(state, batch)
+        losses.append(metrics["loss"])
+        del task, state
+    print(f"  distill_weight=0 step loss {losses[1].item():.8f}, plain step "
+          f"{losses[0].item():.8f}: bit-equal {torch.equal(*losses)}")
+    if not torch.equal(*losses):
+        raise AssertionError("distill: weight 0 changes the loss")
+    return counts
+
+
+# ----------------------------------------------------------------- nan
+
+def phase_nan(smi: str) -> dict[str, int]:
+    """``core.debug.nan_checks`` on the card: a vitl forward with one
+    ``attn.qkv`` weight of block 3 set to NaN raises naming that block's
+    first op; a NaN made in the backward (on autograd's device thread)
+    raises; without the checks both run through; ms a vitl training step
+    with the checks on and off. Returns the launches of the checked
+    step."""
+    import re
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    pre = importlib.import_module(f"{PKG}.data.preprocess")
+    debug = importlib.import_module(f"{PKG}.core.debug")
+
+    model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                                 seed=0)
+    net_hw = da._lower_bound_hw(*FRAME_HW, 518)
+    x = torch.from_numpy(np.stack(_frames(2, seed=9))).cuda()
+    with torch.no_grad():
+        model.pretrained.blocks[3].attn.qkv.weight[7, 11] = float("nan")
+    try:
+        with debug.nan_checks():
+            da._run_batched_u8(model, x, net_hw, FRAME_HW)
+        raise AssertionError("nan: a NaN weight went through the checks")
+    except FloatingPointError as exc:
+        message = str(exc)
+    print(f"nan: forward with a NaN in blocks.3.attn.qkv: {message}")
+    if not re.search(r"aten\.\w+\.\w+ produced a NaN "
+                     r"\(in pretrained\.blocks\.3\.attn\)", message):
+        raise AssertionError(f"nan: the error names {message}")
+    off = da._run_batched_u8(model, x, net_hw, FRAME_HW)
+    print(f"  without the checks the forward runs through: NaN maps "
+          f"{bool(torch.isnan(off).any())}")
+    if not torch.isnan(off).any():
+        raise AssertionError("nan: the NaN weight left no NaN")
+    del model
+
+    # A NaN made in the backward: sqrt's gradient at 0 is inf, which the
+    # head's backward sums with both signs.
+    net = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
+                               seed=0).train()
+    img = torch.randn((2, *net_hw, 3), device="cuda")
+
+    def backward_nan():
+        pred = net(img)
+        torch.sqrt(pred - pred.detach()).sum().backward()
+
+    try:
+        with debug.nan_checks():
+            backward_nan()
+        raise AssertionError("nan: a backward NaN went through the checks")
+    except FloatingPointError as exc:
+        message = str(exc)
+    net.zero_grad()
+    backward_nan()
+    nan_grads = sum(bool(torch.isnan(p.grad).any())
+                    for p in net.parameters() if p.grad is not None)
+    print(f"  backward NaN on the card: {message}; without the checks "
+          f"{nan_grads} parameters get NaN gradients")
+    if not nan_grads:
+        raise AssertionError("nan: the backward made no NaN")
+    del net
+
+    # ms a training step, checks off and on (vitl, one microbatch of 8).
+    data = SeededFrames(1, 0, BATCH, seed=10)
+    one = pre.DevicePreprocessor(518, device="cuda")(data.batches[0],
+                                                     train=False)
+    batch = {k: one[k][None] for k in ("image", "depth")}
+    task = dt.DepthTask("vitl", total_steps=8, grad_accum=1, device="cuda")
+    state = task.init_state(0)
+    task.train_step(state, batch)
+
+    def step_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = task.train_step(state, batch)
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"nan: step loss {loss}")
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_ms = step_ms()
+    _video_counts(fa, rz, zero=True)
+    with debug.nan_checks():
+        checked_ms = step_ms()
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    plain_ms2 = step_ms()
+    print(f"  vitl training step (microbatch {BATCH}, 16-mixed, "
+          f"checkpointing): {plain_ms:.1f} / {plain_ms2:.1f} ms without "
+          f"the checks, {checked_ms:.1f} ms with them; {smi}; launches "
+          f"{counts}")
+    want = _want(K1=2 * BLOCKS, **{_bwd_name(fa._BWD_FUSED): BLOCKS})
+    if counts != want:
+        raise AssertionError(f"nan: launches {counts}, want {want}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2892,6 +3496,7 @@ def main() -> int:
           f"{k3['ms']:.4f} ms through the wrapper)")
     k6 = phase_k6()
     q1, q2 = phase_quant_kernels(smi)
+    dispatch = phase_dispatch(smi)
     torch.cuda.empty_cache()
 
     da = importlib.import_module(f"{PKG}.models.depth_anything")
@@ -2925,14 +3530,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                      seed=0)
-        infer, paths, _, plain, f32 = phase_infer_cli(model, tmp, smi)
+        infer, paths, bgr, plain, f32 = phase_infer_cli(model, tmp, smi)
         dials = phase_dials(model, frames, paths, plain, f32, tmp, smi)
         del model
         served = phase_serve_cli(paths, plain, f32, tmp, smi)
         torch.cuda.empty_cache()
+        exported = phase_export(bgr, os.path.join(tmp, "incoming"), tmp,
+                                smi)
+        torch.cuda.empty_cache()
         train_cli, ckpt_dir, cli_data = phase_train_cli(tmp, smi)
         torch.cuda.empty_cache()
+        distill = phase_distill(cli_data, tmp, smi)
+        torch.cuda.empty_cache()
         test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+        torch.cuda.empty_cache()
+        nan = phase_nan(smi)
         torch.cuda.empty_cache()
 
         # Reconstruction: (a) fusion and the depth-9 mesh of a synthetic
@@ -2964,7 +3576,8 @@ def main() -> int:
                "train_cli": train_cli, "test_cli": test_cli,
                "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
                "pose": pose, "pointcloud": recon_pc,
-               "pointcloud_model": recon_model}
+               "pointcloud_model": recon_model, **exported,
+               "distill": distill, "nan": nan}
 
     k1["launches"] = serve["K1"]
     k1["launches_by_path"] = {"video": video["default"]["K1"]}
@@ -3002,6 +3615,11 @@ def main() -> int:
         rec["launches_by_path"].update(
             {path: counts[name] for path, counts in by_path.items()})
     k1["launches_by_path"]["dials"] = sum(c["K1"] for c in dials.values())
+    # Each op's host cost a call against its direct launch (phase
+    # "dispatch"): K4 and K5 share K1's op, K3 K2's.
+    for rec, op in ((k1, "K1"), (k4, "K1"), (k5, "K1"), (k2, "K2"),
+                    (k3, "K2"), (k6, "K6"), (q1, "Q1"), (q2, "Q2")):
+        rec["op_dispatch_us"] = dispatch[op]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, q1, q2]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,11 @@ Usage:
 
 The speed dials ``--token-merge``, ``--int8`` and ``--int8-calib K`` act
 as in the JAX package (``--int8-calib``: the engine calibrates static
-scales on the first K batches of each resolution). ``--from-export`` (an
-AOT artifact) waits for ROADMAP "Export" and exits with code 2.
+scales on the first K batches of each resolution). ``--from-export
+ARTIFACT`` replays a program saved by ``cli/export_model.py``, with the
+weights of ``--load-from``: its traced-in dials win (a flag that
+contradicts them exits with code 2), batches take the artifact's size,
+and frames of another (H, W) are skipped with a message.
 """
 
 from __future__ import annotations
@@ -118,7 +121,11 @@ def main(argv=None) -> dict:
     p.add_argument("--once", action="store_true",
                    help="process the current directory contents and exit")
     p.add_argument("--from-export", default=None, metavar="ARTIFACT",
-                   help="serve an AOT artifact (not in the port yet)")
+                   help="serve an exported program (cli/export_model.py) "
+                        "instead of the live model; weights still come "
+                        "from --load-from. Only frames matching the "
+                        "exported (H, W) are served; others are skipped "
+                        "with a message")
     p.add_argument("--save-numpy", action="store_true")
     p.add_argument("--grayscale", action="store_true")
     p.add_argument("--device", default="cuda",
@@ -126,19 +133,66 @@ def main(argv=None) -> dict:
     add_speed_dials(p)
     args = p.parse_args(argv)
     check_speed_dials(p, args)
-    if args.from_export:
-        p.error("--from-export is not ported yet (ROADMAP, \"Export\")")
+    if args.int8_calib and args.from_export:
+        p.error("--int8-calib does not apply to --from-export (bake the "
+                "scales at export time: export_model --int8-calib)")
 
     model = load_or_init_depth_model(args.encoder, args.max_depth,
                                      args.load_from, device=args.device,
                                      token_merge=args.token_merge,
                                      quant_int8=args.int8)
+    runner = export_hw = None
+    if args.from_export:
+        from ..serving.export import exported_runner, load_exported
+
+        prog = load_exported(args.from_export)
+        meta = prog.meta
+        # The artifact's traced-in dials win: flags that contradict them
+        # would serve another configuration than the one asked for.
+        if args.int8 and not meta["quant_int8"]:
+            p.error(f"--int8 contradicts the artifact "
+                    f"(quant_int8={meta['quant_int8']}); the exported "
+                    f"program's dials are fixed at export time")
+        if args.token_merge and args.token_merge != meta["token_merge"]:
+            p.error(f"--token-merge {args.token_merge} contradicts the "
+                    f"artifact (token_merge={meta['token_merge']})")
+        if args.input_size != 518 and args.input_size != meta["input_size"]:
+            p.error(f"--input-size {args.input_size} contradicts the "
+                    f"artifact (input_size={meta['input_size']})")
+        if args.batch_size != meta["batch_size"]:
+            print(f"[serve] note: batching to the artifact's batch size "
+                  f"{meta['batch_size']} (not --batch-size "
+                  f"{args.batch_size})")
+            args.batch_size = int(meta["batch_size"])
+        runner = exported_runner(prog, model.state_dict())
+        export_hw = tuple(meta["frame_hw"])
+        print(f"[serve] replaying exported program {args.from_export} "
+              f"(frame {export_hw}, batch {meta['batch_size']}, "
+              f"int8={meta['quant_int8']}, "
+              f"token_merge={meta['token_merge']}, "
+              f"platforms {meta['platforms']})")
     os.makedirs(args.outdir, exist_ok=True)
     processed: set[str] = set()
     stem_owner: dict[str, str] = {}  # guard a.png / a.jpg output collision
     retries = _ReadRetryTracker()
     served = 0
     unread: dict[str, str] = {}
+    # Frames of another resolution under --from-export: parked by (size,
+    # mtime) signature; an in-place rewrite un-parks them.
+    res_skipped: dict[str, tuple[int, int]] = {}
+
+    def res_parked(path: str) -> bool:
+        sig = res_skipped.get(path)
+        if sig is None:
+            return False
+        try:
+            st = os.stat(path)
+        except OSError:
+            return False
+        if (st.st_size, st.st_mtime_ns) == sig:
+            return True
+        res_skipped.pop(path, None)  # rewritten: decode it again
+        return False
 
     def out_paths(path: str):
         stem = os.path.splitext(os.path.basename(path))[0]
@@ -147,7 +201,7 @@ def main(argv=None) -> dict:
 
     with DepthServingEngine(model, input_size=args.input_size,
                             batch_size=args.batch_size,
-                            device=args.device,
+                            device=args.device, runner=runner,
                             calib_batches=args.int8_calib) as engine:
         # Submit-then-drain in bounded chunks: a large pre-existing
         # backlog must not be decoded into host memory all at once.
@@ -164,9 +218,12 @@ def main(argv=None) -> dict:
             stem_owner = {s: q for s, q in stem_owner.items()
                           if q in current}
             retries.prune(current)
+            for gone in set(res_skipped) - current:
+                res_skipped.pop(gone, None)
             unread = {}
             fresh = [f for f in frames
                      if f not in processed
+                     and not res_parked(f)
                      and not os.path.exists(out_paths(f)[0])]
             n_done = 0
             for start in range(0, len(fresh), chunk):
@@ -186,6 +243,18 @@ def main(argv=None) -> dict:
                                   f"(will retry if it changes): {why}")
                         continue
                     retries.clear(path)
+                    if export_hw and raw.shape[:2] != export_hw:
+                        # Signature-keyed skip (not ``processed``): a file
+                        # overwritten in place with a frame of the right
+                        # size is picked back up.
+                        try:
+                            st = os.stat(path)
+                            res_skipped[path] = (st.st_size, st.st_mtime_ns)
+                        except OSError:
+                            pass
+                        print(f"[serve] skipping {path}: {raw.shape[:2]} "
+                              f"!= exported frame {export_hw}")
+                        continue
                     stem = os.path.splitext(os.path.basename(path))[0]
                     owner = stem_owner.setdefault(stem, path)
                     if owner != path:

@@ -13,10 +13,12 @@ a config snapshot (``.hydra/``), then runs ``fit_depth``: checkpoints on
 val_loss under ``checkpoints/<ds_type>/<experiment>``, early stopping,
 per-step LR logging to ``<run dir>/metrics.jsonl``.
 
-Knobs of later slices exit with a message naming their ROADMAP item: the
-mesh and parallel knobs ("Parallel modes"), ``distill_from`` and
-``debug_nans`` ("Distillation and NaN checks"). ``ds_type: pose`` builds
-the pose-pair datamodule, as the JAX package does.
+``trainer.distill_from`` (a teacher checkpoint of
+``trainer.distill_encoder``, vitl by default) adds the distillation term
+of ``DepthTask``; ``trainer.debug_nans`` runs the fit under
+``core.debug.nan_checks``. The mesh and parallel knobs exit with a
+message naming their ROADMAP item ("Parallel modes"). ``ds_type: pose``
+builds the pose-pair datamodule, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -73,12 +75,6 @@ def unported_knobs(cfg, training: bool = True) -> list[str]:
         ("trainer.distributed", bool(t.get("distributed", False))),
     ]
     out = [f"{k} (ROADMAP, \"Parallel modes\")" for k, on in parallel if on]
-    if training and t.get("distill_from"):
-        out.append("trainer.distill_from (ROADMAP, \"Distillation and NaN "
-                   "checks\")")
-    if training and bool(t.get("debug_nans", False)):
-        out.append("trainer.debug_nans (ROADMAP, \"Distillation and NaN "
-                   "checks\")")
     m = cfg.model
     if training and (float(m.get("token_merge", 0.0))
                      or bool(m.get("quant_int8", False))):
@@ -99,10 +95,11 @@ def split_device(argv: list[str]) -> tuple[str, list[str]]:
 def main(argv: list[str] | None = None) -> dict[str, str]:
     """Run the CLI; returns its ``run_dir`` and ``ckpt_dir``."""
     from ..core import config as cfglib
-    from ..core.debug import profile_trace
+    from ..core.debug import nan_checks, profile_trace
     from ..core.dtypes import policy_from_precision
     from ..core.logging import MetricLogger
-    from ..models.convert import load_torch_state_dict
+    from ..models.convert import (load_or_init_depth_model,
+                                  load_torch_state_dict)
     from ..train.depth_task import DepthTask
     from ..train.loop import fit_depth
     from ..utils.experiment import experiment_id
@@ -152,7 +149,21 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
         policy=policy_from_precision(str(cfg.trainer.precision)),
         grad_checkpoint=bool(cfg.model.get("use_checkpoint", True)),
         device=device,
+        distill_encoder=(str(cfg.trainer.get("distill_encoder", "vitl"))
+                         if cfg.trainer.get("distill_from") else None),
+        distill_weight=float(cfg.trainer.get("distill_weight", 1.0)),
     )
+
+    # Knowledge distillation: a frozen teacher from its own checkpoint
+    # (usually a vitl fine-tune) adds a SiLog term toward its predictions.
+    distill_from = cfg.trainer.get("distill_from")
+    if distill_from:
+        print(f"[train_depth] distilling from {task.distill_encoder} "
+              f"teacher ({distill_from}, weight {task.distill_weight})")
+        teacher = load_or_init_depth_model(task.distill_encoder, max_depth,
+                                           str(distill_from), device=device)
+        task.set_teacher(teacher.state_dict())
+        del teacher
 
     # Encoder bootstrap from the DAv2 metric checkpoint, when present.
     pretrained = None
@@ -176,6 +187,8 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
             trace_dir = os.path.join(run_dir, "trace")
             print(f"[train_depth] profiling to {trace_dir}")
             stack.enter_context(profile_trace(trace_dir))
+        if bool(cfg.trainer.get("debug_nans", False)):
+            stack.enter_context(nan_checks(True))
         fit_depth(
             task, datamodule,
             max_epochs=int(cfg.trainer.max_epochs),

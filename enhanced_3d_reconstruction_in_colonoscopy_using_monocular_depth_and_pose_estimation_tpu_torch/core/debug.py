@@ -1,21 +1,27 @@
-"""Tracing and step timing.
+"""Tracing, numerical debugging and step timing.
 
 - ``profile_trace``: ``torch.profiler`` over the enclosed block (CPU, and
   the card when there is one), written as a Chrome trace to
   ``<log_dir>/trace.json``; the profiler is yielded for ``key_averages``.
+- ``nan_checks``: the JAX package's ``jax_debug_nans`` toggle, as a
+  ``TorchDispatchMode`` that raises ``FloatingPointError`` at the first op
+  whose floating output holds a NaN, naming the op (and, in a forward,
+  the module it ran in). Every kernel of the port is an op, so its output
+  is checked too; autograd carries the mode into the backward.
 - ``StepTimer``: rolling per-step wall-clock statistics for train loops.
-
-The JAX package's ``nan_checks`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 @contextlib.contextmanager
@@ -30,6 +36,80 @@ def profile_trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# Ops that return uninitialised memory: NaN bit patterns there are no
+# result of any computation.
+_UNINITIALISED = ("empty", "empty_like", "empty_strided", "new_empty",
+                  "new_empty_strided")
+
+
+def _module_path() -> str:
+    """The dotted name, from the outermost module down, of the innermost
+    module whose ``forward`` is on the calling stack ("" outside a
+    forward, as in a backward)."""
+    chain = []  # innermost first
+    frame = sys._getframe(1)
+    while frame is not None:
+        mod = frame.f_locals.get("self")
+        if (frame.f_code.co_name == "forward"
+                and isinstance(mod, torch.nn.Module)
+                and (not chain or chain[-1] is not mod)):
+            chain.append(mod)
+        frame = frame.f_back
+    chain.reverse()
+    parts = []
+    for outer, inner in zip(chain, chain[1:]):
+        name = next((n for n, m in outer.named_modules() if m is inner), "")
+        if name:
+            parts.append(name)
+    return ".".join(parts)
+
+
+class _NanCheckMode(TorchDispatchMode):
+    """Checks every floating output of every op while ``nan_checks`` is
+    on (read from ``_STATE``, which autograd's device threads see too)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _STATE["enabled"] and func.__name__.split(".")[0] \
+                not in _UNINITIALISED:
+            for t in pytree.tree_leaves(out):
+                if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                        and bool(torch.isnan(t).any())):
+                    where = _module_path()
+                    raise FloatingPointError(
+                        f"nan_checks: {func} produced a NaN"
+                        + (f" (in {where})" if where else ""))
+        return out
+
+
+# Process-wide, as the JAX flag: autograd runs a CUDA backward on its own
+# device thread, which must see the same switch.
+_STATE = {"enabled": False, "modes": 0}
+
+
+@contextlib.contextmanager
+def nan_checks(enable: bool = True):
+    """Raise ``FloatingPointError`` at the first op inside the block whose
+    floating output holds a NaN (not inf: as ``jax_debug_nans``). Nests;
+    ``enable=False`` turns the checks off inside an enabled block. The
+    previous state returns on exit."""
+    prev = _STATE["enabled"]
+    _STATE["enabled"] = enable
+    mode = _NanCheckMode() if enable and not _STATE["modes"] else None
+    try:
+        if mode is None:
+            yield
+        else:
+            _STATE["modes"] += 1
+            try:
+                with mode:
+                    yield
+            finally:
+                _STATE["modes"] -= 1
+    finally:
+        _STATE["enabled"] = prev
 
 
 class StepTimer:

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import device_cache, resolve_device
 from ..core.dtypes import POLICY_BF16
 from ..ops.quant import calibrate_scales, frozen_scales
 from ..ops.resize import resize_align_corners, resize_antialias
@@ -158,9 +158,11 @@ def _lower_bound_hw(h: int, w: int, target: int,
     return round_to(h * scale), round_to(w * scale)
 
 
+@device_cache(maxsize=8)
 def _imagenet(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    return (torch.from_numpy(IMAGENET_MEAN).to(device),
-            torch.from_numpy(IMAGENET_STD).to(device))
+    with torch.inference_mode(False):
+        return (torch.from_numpy(IMAGENET_MEAN).to(device),
+                torch.from_numpy(IMAGENET_STD).to(device))
 
 
 @torch.inference_mode()
@@ -190,6 +192,14 @@ def _run_batched(model: DepthAnythingV2, rgb01: torch.Tensor,
     return resize_align_corners(depth[..., None], tuple(out_hw))[..., 0]
 
 
+def rgb01_of_bgr_u8(bgr_u8: torch.Tensor) -> torch.Tensor:
+    """The BGR->RGB flip and /255 of uint8 frames, on their device (the
+    serving upload format; on the card the division is a multiply by the
+    reciprocal, so it may differ from the host's f32 division in the last
+    bit)."""
+    return bgr_u8.flip(-1).float() / 255.0
+
+
 @torch.inference_mode()
 def _run_batched_u8(model: DepthAnythingV2, bgr_u8: torch.Tensor,
                     net_hw: tuple[int, int], out_hw: tuple[int, int],
@@ -198,8 +208,7 @@ def _run_batched_u8(model: DepthAnythingV2, bgr_u8: torch.Tensor,
     the host uploads 4x fewer bytes than the f32 form. ``readback_f16``
     halves the depth readback (f16 keeps ~0.01 absolute at the 20 m
     range cap)."""
-    rgb01 = bgr_u8.flip(-1).float() / 255.0
-    out = _run_batched(model, rgb01, net_hw, out_hw)
+    out = _run_batched(model, rgb01_of_bgr_u8(bgr_u8), net_hw, out_hw)
     return out.half() if readback_f16 else out
 
 

@@ -30,7 +30,6 @@ the final norm; ``quant_int8`` runs the blocks' projections in W8A8
 
 from __future__ import annotations
 
-import functools
 from typing import Any
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.device import device_cache
 from ..core.dtypes import POLICY_BF16
 from ..ops import attention as attn_ops
 from ..ops.quant import int8_dense
@@ -191,11 +191,12 @@ def _torch_bicubic_matrix(out_size: int, in_size: int,
     return w
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _bicubic_tensor(out_size: int, in_size: int,
                     device: torch.device) -> torch.Tensor:
-    """``_torch_bicubic_matrix`` on the device, uploaded once per shape
-    (outside inference mode, so training may save it for backward)."""
+    """``_torch_bicubic_matrix`` on the device, uploaded once per shape and
+    never while tracing (``device_cache``); outside inference mode, so
+    training may save it for backward."""
     with torch.inference_mode(False):
         return torch.from_numpy(_torch_bicubic_matrix(out_size, in_size)).to(
             device)

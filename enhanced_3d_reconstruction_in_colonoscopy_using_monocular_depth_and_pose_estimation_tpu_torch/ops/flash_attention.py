@@ -38,6 +38,15 @@ version as a whole is ``flash_attention_bwd_reference``.
 views, and its backward
 writes dq, dk and dv straight into the three views of one packed dqkv, so
 the backward of the projection gets one contiguous gradient.
+
+Each launch is a ``torch.library`` op (``e3d::flash_attn_fwd`` for K1, K4
+and K5, ``e3d::flash_attn_bwd`` for K2 and K3): its CPU kernel is the
+plain version, its CUDA kernel the launch (which adds one to the public
+function's ``launches``), and its fake implementation makes the launch's
+checks on the views' metadata. So ``torch.export`` records each launch as
+one node, with the forward schedule fixed at export, a replay counts its
+launches as a live call does, and ``core.debug.nan_checks`` sees every
+kernel's output.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import os
 
 import torch
 
+from ..core.device import aligned16
 from ..utils import cbuild
 
 HEAD_DIMS = (32, 64)
@@ -202,7 +212,7 @@ def _layout_ok(x: torch.Tensor) -> bool:
     """16-byte row chunks: unit stride on D, other strides and the base
     address aligned to 8 elements."""
     return (x.stride(3) == 1 and not any(s % 8 for s in x.stride()[:3])
-            and x.data_ptr() % 16 == 0)
+            and aligned16(x))
 
 
 def _tma_ok(x: torch.Tensor) -> bool:
@@ -212,7 +222,7 @@ def _tma_ok(x: torch.Tensor) -> bool:
     size = x.element_size()
     return (x.dim() == 4 and x.stride(3) == 1
             and all(s != 0 and s * size % 16 == 0 for s in x.stride()[:3])
-            and x.data_ptr() % 16 == 0)
+            and aligned16(x))
 
 
 def _require_tma(what: str, **views: torch.Tensor) -> None:
@@ -319,29 +329,83 @@ def _launch_fwd(entry: str, q, k, v, *extra) -> tuple[torch.Tensor,
     return o, lse
 
 
+# ------------------------------------------------- the launches as ops
+
+# The forward kernels by schedule name: (the public function that counts
+# the launch, its ctypes entry).
+_FORWARDS = {"K1": ("flash_attention", _K1_ENTRY),
+             "K4": ("flash_attention_pair", _K4_ENTRY),
+             "K5 pipe": ("flash_attention_heads", _K5_ENTRY),
+             "K5 hloop": ("flash_attention_heads", _K5_ENTRY)}
+
+
+def _check_fwd(q, k, v, kernel: str) -> None:
+    """The forward launch's checks, made on the views' metadata alone (so
+    the fake implementation makes them too): every kernel reads q, k and
+    v by TMA; K4 pairs the B*H heads."""
+    if kernel not in _FORWARDS:
+        raise ValueError(f"flash_attention: unknown forward kernel "
+                         f"{kernel!r}; expected one of {tuple(_FORWARDS)}")
+    name = _FORWARDS[kernel][0]
+    _require_tma(name, q=q, k=k, v=v)
+    if kernel == "K4" and (q.shape[0] * q.shape[2]) % 2:
+        raise ValueError(f"flash_attention_pair: B*H = {q.shape[0]} x "
+                         f"{q.shape[2]} is odd; K4 pairs heads")
+    _check(q, ("k", k), ("v", v))
+
+
+@torch.library.custom_op("e3d::flash_attn_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kernel: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1, K4 or K5 (``kernel``, a key of ``_FORWARDS``) on (B, N, H, D)
+    q, k, v: (o, lse). This CPU kernel is the plain version, for any
+    ``kernel``."""
+    o, lse = flash_attention_reference(q, k, v)
+    return o.contiguous(), lse.contiguous()
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, kernel):
+    """The launch of ``kernel``, counted on its public function."""
+    _check_fwd(q, k, v, kernel)
+    name, entry = _FORWARDS[kernel]
+    extra = ()
+    if entry == _K5_ENTRY:
+        b, n, h, d = q.shape
+        extra = (head_block(b * h, n, d), int(kernel == "K5 pipe"))
+    out = _launch_fwd(entry, q, k, v, *extra)
+    globals()[name].launches += 1
+    return out
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, kernel):
+    # Every device but the CPU takes the launch's checks: a traced CUDA
+    # view fails at export, a meta tensor is refused as at a launch.
+    if q.device.type != "cpu":
+        _check_fwd(q, k, v, kernel)
+    b, n, h, d = q.shape
+    return (q.new_empty((b, n, h, d)),
+            q.new_empty((b, h, n),
+                        dtype=torch.promote_types(q.dtype, torch.float32)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention over (B, N, H, D): (o (B, N, H, D), lse (B, H, N) f32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     that ``forward_schedule`` names: K1 (adding one to
-    ``flash_attention.launches``), or K4 or K5 through
-    ``flash_attention_pair`` and ``flash_attention_heads``. Each reads q,
+    ``flash_attention.launches``), K4 or K5 (counted on
+    ``flash_attention_pair`` and ``flash_attention_heads``). Each reads q,
     k and v by TMA, so a view TMA cannot read raises before any launch.
     Not differentiable, so it raises, on every device alike, when autograd
     would record it: train through ``flash_attention_qkv``."""
     _refuse_autograd(q, k, v)
-    if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v)
-    kernel = forward_schedule(q.shape[0] * q.shape[2])
-    if kernel == "K4":
-        return flash_attention_pair(q, k, v)
-    if kernel != "K1":
-        return flash_attention_heads(q, k, v, pipe=kernel == "K5 pipe")
-    _require_tma("flash_attention", q=q, k=k, v=v)
-    out = _launch_fwd(_K1_ENTRY, q, k, v)
-    flash_attention.launches += 1
-    return out
+    kernel = ("K1" if _on_cpu(q, k, v)
+              else forward_schedule(q.shape[0] * q.shape[2]))
+    return _fwd_op(q, k, v, kernel)
 
 
 flash_attention.launches = 0
@@ -354,15 +418,7 @@ def flash_attention_pair(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     version; CUDA tensors that TMA can read launch K4 and add one to
     ``flash_attention_pair.launches``; anything else raises."""
     _refuse_autograd(q, k, v)
-    if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v)
-    _require_tma("flash_attention_pair", q=q, k=k, v=v)
-    if (q.shape[0] * q.shape[2]) % 2:
-        raise ValueError(f"flash_attention_pair: B*H = {q.shape[0]} x "
-                         f"{q.shape[2]} is odd; K4 pairs heads")
-    out = _launch_fwd(_K4_ENTRY, q, k, v)
-    flash_attention_pair.launches += 1
-    return out
+    return _fwd_op(q, k, v, "K4")
 
 
 flash_attention_pair.launches = 0
@@ -377,14 +433,7 @@ def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K5 and add one to ``flash_attention_heads.launches``; anything else
     raises."""
     _refuse_autograd(q, k, v)
-    if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v)
-    _require_tma("flash_attention_heads", q=q, k=k, v=v)
-    b, n, h, d = q.shape
-    out = _launch_fwd(_K5_ENTRY, q, k, v, head_block(b * h, n, d),
-                      int(pipe))
-    flash_attention_heads.launches += 1
-    return out
+    return _fwd_op(q, k, v, "K5 pipe" if pipe else "K5 hloop")
 
 
 flash_attention_heads.launches = 0
@@ -397,20 +446,12 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool
     (``fused``), or K3's dQ and dK/dV kernels. dq, dk and dv are bf16
     (B, N, H, D) views; the f32 scratch is allocated here and returned,
     as ``bwd_prep_reference`` lays it out: (lse2, delta, dq_acc)."""
-    # dO comes from autograd and may be non-contiguous (or broadcast, with
-    # a zero stride, after a sum); a layout TMA cannot read is copied
-    # once here. That is a copy, not a fallback: the kernel runs.
-    if do.device == q.device and do.dim() == 4 and not _tma_ok(do):
-        do = do.contiguous()
+    do = _readable_grad(q, do)
     _check(q, ("k", k), ("v", v), ("o", o), ("dO", do), ("dq", dq),
            ("dk", dk), ("dv", dv))
     _require_tma("flash_attention", q=q, k=k, v=v)
+    _check_lse(q, lse)
     b, n, h, d = q.shape
-    if (lse.shape != (b, h, n) or lse.dtype != torch.float32
-            or not lse.is_contiguous() or lse.device != q.device):
-        raise ValueError("flash_attention: lse must be a contiguous "
-                         f"(B, H, N) = {(b, h, n)} float32 tensor on q's "
-                         f"device, got {tuple(lse.shape)} {lse.dtype}")
     n_pad = padded_rows(n)
     lse2 = torch.empty((b, h, n_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
@@ -434,13 +475,78 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused: bool
     return lse2, delta, acc
 
 
+def _readable_grad(q: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """dO as the kernels read it. It comes from autograd and may be
+    non-contiguous (or broadcast, with a zero stride, after a sum); a
+    layout TMA cannot read is copied once. That is a copy, not a
+    fallback: the kernel runs."""
+    if do.device == q.device and do.dim() == 4 and not _tma_ok(do):
+        return do.contiguous()
+    return do
+
+
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    b, n, h, _ = q.shape
+    if (lse.shape != (b, h, n) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention: lse must be a contiguous "
+                         f"(B, H, N) = {(b, h, n)} float32 tensor on q's "
+                         f"device, got {tuple(lse.shape)} {lse.dtype}")
+
+
+@torch.library.custom_op("e3d::flash_attn_bwd", mutates_args=(),
+                         device_types="cpu")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            fused: bool) -> torch.Tensor:
+    """K2 (``fused``) or K3: a fresh packed dqkv (B, N, 3, H, D) in q's
+    dtype. This CPU kernel is the plain backward, for either."""
+    return torch.stack(flash_attention_bwd_reference(q, k, v, o, lse, do),
+                       dim=2)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(q, k, v, o, lse, do, fused):
+    """The launch, into the three views of one dqkv, counted on
+    ``flash_attention_bwd_fused`` or ``flash_attention_bwd_split``."""
+    b, n, h, d = q.shape
+    dqkv = torch.empty((b, n, 3, h, d), dtype=torch.bfloat16,
+                       device=q.device)
+    _launch_bwd(q, k, v, o, lse, do, *dqkv.unbind(2), fused=fused)
+    counter = (flash_attention_bwd_fused if fused
+               else flash_attention_bwd_split)
+    counter.launches += 1
+    return dqkv
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, o, lse, do, fused):
+    if q.device.type != "cpu":
+        _check(q, ("k", k), ("v", v), ("o", o),
+               ("dO", _readable_grad(q, do)))
+        _require_tma("flash_attention", q=q, k=k, v=v)
+        _check_lse(q, lse)
+    b, n, h, d = q.shape
+    return q.new_empty((b, n, 3, h, d))
+
+
+def _backward_into(q, k, v, o, lse, do, dq, dk, dv, fused: bool) -> None:
+    """The backward op, its three gradients copied into dq, dk, dv (bf16
+    (B, N, H, D) views on q's device, checked first)."""
+    if q.device.type == "cuda":
+        _check(q, ("dq", dq), ("dk", dk), ("dv", dv))
+    for out, grad in zip((dq, dk, dv),
+                         _bwd_op(q, k, v, o, lse, do, fused).unbind(2)):
+        out.copy_(grad)
+
+
 def flash_attention_bwd_fused(q, k, v, o, lse, do, dq, dk, dv) -> None:
     """Kernel K2: writes dq, dk and dv (bf16 (B, N, H, D) views allowed).
     One pass over key blocks; each block's dQ share is added into an f32
     accumulator by bulk reductions, which a conversion kernel scales and
-    rounds into ``dq``. Adds one to ``flash_attention_bwd_fused.launches``."""
-    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused=True)
-    flash_attention_bwd_fused.launches += 1
+    rounds into dq. Adds one to ``flash_attention_bwd_fused.launches``.
+    The op returns one packed gradient; this copies it into the views."""
+    _backward_into(q, k, v, o, lse, do, dq, dk, dv, fused=True)
 
 
 flash_attention_bwd_fused.launches = 0
@@ -448,10 +554,10 @@ flash_attention_bwd_fused.launches = 0
 
 def flash_attention_bwd_split(q, k, v, o, lse, do, dq, dk, dv) -> None:
     """Kernel K3: a dQ kernel over query blocks and a dK/dV kernel over key
-    blocks, writing straight into the bf16 (B, N, H, D) views dq, dk, dv.
-    Deterministic. Adds one to ``flash_attention_bwd_split.launches``."""
-    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, fused=False)
-    flash_attention_bwd_split.launches += 1
+    blocks, into the bf16 (B, N, H, D) views dq, dk, dv (through the op's
+    packed gradient, as K2). Deterministic. Adds one to
+    ``flash_attention_bwd_split.launches``."""
+    _backward_into(q, k, v, o, lse, do, dq, dk, dv, fused=False)
 
 
 flash_attention_bwd_split.launches = 0
@@ -462,8 +568,8 @@ class FlashAttentionQKV(torch.autograd.Function):
 
     Forward: ``flash_attention`` (K1, or K4/K5 under their knobs) on the
     three strided views (the plain version on the CPU);
-    returns (o, lse) and saves (qkv, o, lse). Backward: one packed dqkv
-    whose three views K2 (or K3) fill, or the plain backward on the CPU.
+    returns (o, lse) and saves (qkv, o, lse). Backward: the packed dqkv of
+    K2 (or K3), or of the plain backward on the CPU.
     Only ``o`` is differentiated, as in the JAX package's custom_vjp."""
 
     @staticmethod
@@ -484,16 +590,7 @@ def flash_attention_qkv_backward(qkv: torch.Tensor, o: torch.Tensor,
                                  ) -> torch.Tensor:
     """dqkv (B, N, 3, H, D) of ``FlashAttentionQKV``: the plain backward
     for CPU tensors; K2, or K3 when ``_BWD_FUSED`` is off, for CUDA ones."""
-    q, k, v = qkv.unbind(2)
-    if qkv.device.type == "cpu":
-        return torch.stack(
-            flash_attention_bwd_reference(q, k, v, o, lse, do), dim=2)
-    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-    dq, dk, dv = dqkv.unbind(2)
-    bwd = flash_attention_bwd_fused if _BWD_FUSED else \
-        flash_attention_bwd_split
-    bwd(q, k, v, o, lse, do, dq, dk, dv)
-    return dqkv
+    return _bwd_op(*qkv.unbind(2), o, lse, do, _BWD_FUSED)
 
 
 def flash_attention_qkv(qkv: torch.Tensor) -> torch.Tensor:

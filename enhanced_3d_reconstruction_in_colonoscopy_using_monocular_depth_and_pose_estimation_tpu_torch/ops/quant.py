@@ -17,7 +17,11 @@ dot (eager PyTorch would run each as a chain of f32 passes):
   and the cast (plain version ``dequantize_int32_reference``).
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or
-raise. Both equal their plain versions bit for bit.
+raise. Both equal their plain versions bit for bit. Each launch is a
+``torch.library`` op (``e3d::quantize_int8``, ``e3d::dequantize_int32``)
+whose CPU kernel is the plain version and whose fake implementation makes
+the launch's checks, so ``torch.export`` records it and a replay counts
+its launches.
 
 Static calibration: ``calibration(tape)`` records each activation site's
 abs-max while a forward runs dynamically; ``calibrate_scales`` maxes the
@@ -38,6 +42,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..core.device import aligned16
 from ..utils import cbuild
 
 _EPS = 1e-8
@@ -156,6 +161,70 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_quantize(x: torch.Tensor, scale: torch.Tensor | None) -> None:
+    """Q1's checks, on metadata alone (the fake implementation makes them
+    too)."""
+    if x.device.type != "cuda" or x.dtype not in _DTYPES:
+        raise ValueError(f"quantize_int8: x is {x.dtype} on {x.device}; the "
+                         "kernel takes a float32 or bfloat16 CUDA tensor")
+    k = x.shape[1]
+    vec = 16 // x.element_size()
+    if x.stride(1) != 1 or k % vec or x.stride(0) % vec or not aligned16(x):
+        raise ValueError(f"quantize_int8: rows (shape {tuple(x.shape)}, "
+                         f"strides {x.stride()}) must have unit column "
+                         "stride, 16-byte aligned starts and a length of "
+                         "whole 16-byte vectors")
+    if scale is not None and (scale.numel() != 1 or scale.device != x.device
+                              or scale.dtype != torch.float32):
+        raise ValueError("quantize_int8: a given scale is one float32 on "
+                         "x's device")
+
+
+@torch.library.custom_op("e3d::quantize_int8", mutates_args=(),
+                         device_types="cpu")
+def _quantize_op(x: torch.Tensor, scale: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Q1 on (R, K) rows: (q int8, per-row scales (R,) f32), the scales
+    empty when ``scale`` is given (an op returns no input). This CPU
+    kernel is the plain version."""
+    q, row_scale = quantize_int8_reference(x, scale)
+    if scale is not None:
+        row_scale = x.new_empty((0,), dtype=torch.float32)
+    return q, row_scale
+
+
+@_quantize_op.register_kernel("cuda")
+def _quantize_cuda(x, scale):
+    """The launch, counted on ``quantize_int8``."""
+    _check_quantize(x, scale)
+    r, k = x.shape
+    q = torch.empty((r, k), dtype=torch.int8, device=x.device)
+    out_scale = torch.empty((r if scale is None else 0,),
+                            dtype=torch.float32, device=x.device)
+    work = (torch.empty((r,), dtype=torch.int32, device=x.device)
+            if scale is None and k > _SHORT_MAX else None)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        err = lib.e3d_quantize_rows(
+            x.data_ptr(), x.stride(0), r, k, _DTYPES[x.dtype],
+            None if scale is None else scale.data_ptr(), q.data_ptr(),
+            None if scale is not None else out_scale.data_ptr(),
+            None if work is None else work.data_ptr(), _stream(x))
+    if err:
+        raise RuntimeError(f"quantize_int8 launch failed: CUDA error {err}")
+    quantize_int8.launches += 1
+    return q, out_scale
+
+
+@_quantize_op.register_fake
+def _quantize_fake(x, scale):
+    if x.device.type != "cpu":
+        _check_quantize(x, scale)
+    r = x.shape[0]
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((r if scale is None else 0,), dtype=torch.float32))
+
+
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel Q1: symmetric int8 of the rows of ``x`` (R, K), bf16 or f32
@@ -174,39 +243,8 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor | None = None
     if x.dim() != 2:
         raise ValueError(f"quantize_int8: x has shape {tuple(x.shape)}; "
                          "expected (R, K) rows")
-    if x.device.type == "cpu":
-        return quantize_int8_reference(x, scale)
-    if x.device.type != "cuda" or x.dtype not in _DTYPES:
-        raise ValueError(f"quantize_int8: x is {x.dtype} on {x.device}; the "
-                         "kernel takes a float32 or bfloat16 CUDA tensor")
-    r, k = x.shape
-    vec = 16 // x.element_size()
-    if (x.stride(1) != 1 or k % vec or x.stride(0) % vec
-            or x.data_ptr() % 16):
-        raise ValueError(f"quantize_int8: rows (shape {tuple(x.shape)}, "
-                         f"strides {x.stride()}) must have unit column "
-                         "stride, 16-byte aligned starts and a length of "
-                         "whole 16-byte vectors")
-    if scale is not None and (scale.numel() != 1 or scale.device != x.device
-                              or scale.dtype != torch.float32):
-        raise ValueError("quantize_int8: a given scale is one float32 on "
-                         "x's device")
-    q = torch.empty((r, k), dtype=torch.int8, device=x.device)
-    out_scale = (torch.empty((r,), dtype=torch.float32, device=x.device)
-                 if scale is None else scale)
-    work = (torch.empty((r,), dtype=torch.int32, device=x.device)
-            if scale is None and k > _SHORT_MAX else None)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        err = lib.e3d_quantize_rows(
-            x.data_ptr(), x.stride(0), r, k, _DTYPES[x.dtype],
-            None if scale is None else scale.data_ptr(), q.data_ptr(),
-            None if scale is not None else out_scale.data_ptr(),
-            None if work is None else work.data_ptr(), _stream(x))
-    if err:
-        raise RuntimeError(f"quantize_int8 launch failed: CUDA error {err}")
-    quantize_int8.launches += 1
-    return q, out_scale
+    q, row_scale = _quantize_op(x, scale)
+    return q, (row_scale if scale is None else scale)
 
 
 quantize_int8.launches = 0
@@ -247,36 +285,48 @@ def dequantize_int32_reference(acc: torch.Tensor, xs: torch.Tensor,
     return t.to(out_dtype).reshape(acc.shape)
 
 
-def dequantize_int32(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
-                     bias: torch.Tensor | None, out_dtype: torch.dtype,
-                     cast_first: bool = False) -> torch.Tensor:
-    """Kernel Q2: the function of ``dequantize_int32_reference``. ``acc``
-    is (R, N), or (B, H, W, N) with unit column stride and any row strides
-    (the crop of a padded convolution's accumulator).
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    adding one to ``dequantize_int32.launches``, or raise."""
-    if acc.device.type == "cpu":
-        return dequantize_int32_reference(acc, xs, ws, bias, out_dtype,
-                                          cast_first)
+def _check_dequantize(acc: torch.Tensor, xs: torch.Tensor,
+                      ws: torch.Tensor, out_dtype: torch.dtype) -> None:
+    """Q2's checks, on metadata alone (the fake implementation makes them
+    too)."""
     n = acc.shape[-1]
-    dims = (1,) * (4 - acc.dim()) + tuple(acc.shape[:-1])
-    strides = (0,) * (4 - acc.dim()) + tuple(acc.stride()[:-1])
-    rows = math.prod(dims)
+    strides = acc.stride()[:-1]
     if (acc.device.type != "cuda" or acc.dtype != torch.int32
             or out_dtype not in _DTYPES or acc.dim() not in (2, 4)
             or acc.stride(-1) != 1 or n % 4 or any(s % 4 for s in strides)
-            or acc.data_ptr() % 16):
+            or not aligned16(acc)):
         raise ValueError(f"dequantize_int32: acc {tuple(acc.shape)} "
                          f"{acc.dtype} on {acc.device}, strides "
                          f"{acc.stride()}, output {out_dtype}: the kernel "
                          "takes int32 rows of a multiple of 4 columns with "
                          "unit column stride and 16-byte aligned rows, "
                          "and writes float32 or bfloat16")
+    rows = math.prod(acc.shape[:-1])
     if rows % xs.numel() or ws.shape != (n,):
         raise ValueError(f"dequantize_int32: {xs.numel()} row scales for "
                          f"{rows} rows, {tuple(ws.shape)} column scales for "
                          f"{n} columns")
+
+
+@torch.library.custom_op("e3d::dequantize_int32", mutates_args=(),
+                         device_types="cpu")
+def _dequantize_op(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                   bias: torch.Tensor | None, out_dtype: torch.dtype,
+                   cast_first: bool) -> torch.Tensor:
+    """Q2: a new contiguous tensor of acc's shape in ``out_dtype``. This
+    CPU kernel is the plain version."""
+    return dequantize_int32_reference(acc, xs, ws, bias, out_dtype,
+                                      cast_first)
+
+
+@_dequantize_op.register_kernel("cuda")
+def _dequantize_cuda(acc, xs, ws, bias, out_dtype, cast_first):
+    """The launch, counted on ``dequantize_int32``."""
+    _check_dequantize(acc, xs, ws, out_dtype)
+    n = acc.shape[-1]
+    dims = (1,) * (4 - acc.dim()) + tuple(acc.shape[:-1])
+    strides = (0,) * (4 - acc.dim()) + tuple(acc.stride()[:-1])
+    rows = math.prod(dims)
     xs = xs.float().contiguous()
     ws = ws.float().contiguous()
     b = _bias_f32(bias, out_dtype, cast_first)
@@ -294,6 +344,25 @@ def dequantize_int32(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
     return out
 
 
+@_dequantize_op.register_fake
+def _dequantize_fake(acc, xs, ws, bias, out_dtype, cast_first):
+    if acc.device.type != "cpu":
+        _check_dequantize(acc, xs, ws, out_dtype)
+    return acc.new_empty(acc.shape, dtype=out_dtype)
+
+
+def dequantize_int32(acc: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                     bias: torch.Tensor | None, out_dtype: torch.dtype,
+                     cast_first: bool = False) -> torch.Tensor:
+    """Kernel Q2: the function of ``dequantize_int32_reference``. ``acc``
+    is (R, N), or (B, H, W, N) with unit column stride and any row strides
+    (the crop of a padded convolution's accumulator).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    adding one to ``dequantize_int32.launches``, or raise."""
+    return _dequantize_op(acc, xs, ws, bias, out_dtype, cast_first)
+
+
 dequantize_int32.launches = 0
 
 
@@ -305,7 +374,7 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     rows (a copy where the view is not)."""
     vec = 16 // x.element_size()
     if (x.stride(1) == 1 and x.stride(0) % vec == 0
-            and x.data_ptr() % 16 == 0):
+            and aligned16(x)):
         return x
     return x.contiguous()
 

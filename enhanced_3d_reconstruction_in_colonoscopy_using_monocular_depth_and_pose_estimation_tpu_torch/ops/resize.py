@@ -41,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from ..core.device import device_cache
 from ..utils import cbuild
 
 # The JAX package's E3D_PALLAS_RESIZE knob: every decoder upsample on K6.
@@ -125,12 +126,13 @@ def _align_corners_matrix(in_size: int, out_size: int, method: str
     return mat.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def _device_matrix(make_matrix, in_size: int, out_size: int, method: str,
                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A resize matrix on the device, uploaded once per shape. Made outside
-    inference mode even when first asked for inside it (serving): a cached
-    inference tensor could not be saved for a later training backward."""
+    """A resize matrix on the device, uploaded once per shape (never while
+    tracing: ``device_cache``). Made outside inference mode even when
+    first asked for inside it (serving): a cached inference tensor could
+    not be saved for a later training backward."""
     with torch.inference_mode(False):
         return torch.from_numpy(make_matrix(in_size, out_size, method)).to(
             device=device, dtype=dtype)
@@ -239,7 +241,7 @@ def _lerp_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray,
             frac.astype(np.float32))
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def _device_taps(n_in: int, n_out: int, device: torch.device
                  ) -> tuple[torch.Tensor, ...]:
     """``_lerp_taps`` on the device, uploaded once per shape (outside
@@ -286,35 +288,32 @@ def _bind_lerp(lib: ctypes.CDLL):
     return fn
 
 
-def lerp_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """Kernel K6: align-corners bilinear resize of (N, C, H, W) ``x`` to
-    ``out_hw``.
-
-    CPU tensors take ``lerp_resize_reference``; CUDA tensors (bf16 or
-    f32) launch the kernel, adding one to ``lerp_resize.launches``, or
-    raise. The kernel reads and writes channels-last memory, the layout
-    of the decoder's tensors; ``x`` in another layout is copied into it
-    first, and the output is channels-last. K6 has no backward (the JAX
-    package gives it no VJP), so a call autograd would record raises."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("lerp_resize (kernel K6) is not differentiable; "
-                           "run it under torch.no_grad() or leave "
-                           "E3D_PALLAS_RESIZE off")
-    if x.device.type == "cpu":
-        return lerp_resize_reference(x, out_hw)
+def _check_lerp(x: torch.Tensor) -> None:
+    """K6's checks, on metadata alone (the fake implementation makes them
+    too)."""
     if x.device.type != "cuda":
         raise ValueError(f"lerp_resize: x on {x.device}; it takes a CUDA "
                          "tensor (or a CPU one for the plain version)")
     if x.dtype not in _LERP_DTYPES:
         raise ValueError(f"lerp_resize: x is {x.dtype}; the kernel takes "
                          "float32 or bfloat16")
-    if x.dim() != 4:
-        raise ValueError(f"lerp_resize: x has shape {tuple(x.shape)}; the "
-                         "kernel takes (N, C, H, W)")
+
+
+@torch.library.custom_op("e3d::lerp_resize", mutates_args=(),
+                         device_types="cpu")
+def _lerp_op(x: torch.Tensor, h2: int, w2: int) -> torch.Tensor:
+    """K6 on (N, C, H, W) ``x``, a new (N, C, h2, w2) tensor in
+    channels-last memory. This CPU kernel is the plain version."""
+    return lerp_resize_reference(x, (h2, w2)).contiguous(
+        memory_format=torch.channels_last)
+
+
+@_lerp_op.register_kernel("cuda")
+def _lerp_cuda(x, h2, w2):
+    """The launch, counted on ``lerp_resize``; x in another layout is
+    copied into channels-last memory first."""
+    _check_lerp(x)
     n, c, h, w = x.shape
-    h2, w2 = out_hw
-    if (h2, w2) == (h, w):
-        return x
     x = x.contiguous(memory_format=torch.channels_last)
     y = torch.empty((n, c, h2, w2), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
@@ -330,6 +329,38 @@ def lerp_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         raise RuntimeError(f"lerp_resize launch failed: CUDA error {err}")
     lerp_resize.launches += 1
     return y
+
+
+@_lerp_op.register_fake
+def _lerp_fake(x, h2, w2):
+    if x.device.type != "cpu":
+        _check_lerp(x)
+    return torch.empty((x.shape[0], x.shape[1], h2, w2), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+def lerp_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Kernel K6: align-corners bilinear resize of (N, C, H, W) ``x`` to
+    ``out_hw``.
+
+    CPU tensors take ``lerp_resize_reference``; CUDA tensors (bf16 or
+    f32) launch the kernel, adding one to ``lerp_resize.launches``, or
+    raise. The kernel reads and writes channels-last memory, the layout
+    of the decoder's tensors; ``x`` in another layout is copied into it
+    first, and the output is channels-last (on the CPU too). K6 has no
+    backward (the JAX package gives it no VJP), so a call autograd would
+    record raises."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("lerp_resize (kernel K6) is not differentiable; "
+                           "run it under torch.no_grad() or leave "
+                           "E3D_PALLAS_RESIZE off")
+    if x.dim() != 4:
+        raise ValueError(f"lerp_resize: x has shape {tuple(x.shape)}; the "
+                         "kernel takes (N, C, H, W)")
+    h2, w2 = out_hw
+    if (h2, w2) == tuple(x.shape[2:]):
+        return x
+    return _lerp_op(x, h2, w2)
 
 
 lerp_resize.launches = 0

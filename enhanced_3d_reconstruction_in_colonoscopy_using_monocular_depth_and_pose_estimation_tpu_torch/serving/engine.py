@@ -11,6 +11,11 @@
 
 The model's weights go to the device once, when the engine is built.
 
+``runner`` (optional) replaces the per-resolution ``BatchedRunner``s:
+any ``list[BGR uint8] -> list[(H, W) f32]`` callable, such as an
+exported program (``serving/export.py::exported_runner``,
+``cli/serve.py --from-export``); ``model`` may then be ``None``.
+
 ``calib_batches`` K > 0 (a ``quant_int8`` model) calibrates static int8
 scales once per resolution: the first K device batches are held (their
 futures resolve late), calibrate a frozen-scale ``BatchedRunner``, and
@@ -58,14 +63,16 @@ class _Stats:
             self.failed = 0
             self.batches = 0
             self.batch_fill = 0  # sum of batch sizes, for mean fill
+            self.runner_s = 0.0  # wall time inside the runners
 
     def note_submit(self, n: int = 1) -> None:
         with self._lock:
             self.submitted += n
 
     def note_batch(self, size: int, latencies_s: list[float],
-                   failed: bool) -> None:
+                   failed: bool, runner_s: float = 0.0) -> None:
         with self._lock:
+            self.runner_s += runner_s
             self.batches += 1
             self.batch_fill += size
             if failed:
@@ -89,6 +96,7 @@ class _Stats:
                 "batches": self.batches,
                 "mean_batch_fill": (self.batch_fill / self.batches
                                     if self.batches else 0.0),
+                "runner_seconds": self.runner_s,
             }
             if lat.size:
                 out.update(
@@ -105,13 +113,20 @@ class DepthServingEngine:
 
     def __init__(self, model, input_size: int = 518, batch_size: int = 8,
                  max_delay_s: float = 0.05,
-                 device: str = "cuda", calib_batches: int = 0):
+                 device: str = "cuda", calib_batches: int = 0,
+                 runner=None):
         self.calib_batches = int(calib_batches)
-        if self.calib_batches > 0 and not getattr(model, "quant_int8",
-                                                  False):
-            raise ValueError("calib_batches requires a quant_int8 model "
-                             "(--int8)")
-        self.model = model.to(resolve_device(device)).eval()
+        if self.calib_batches > 0:
+            if runner is not None:
+                raise ValueError("calib_batches does not apply to an "
+                                 "exported runner (its dials are fixed "
+                                 "at export time)")
+            if not getattr(model, "quant_int8", False):
+                raise ValueError("calib_batches requires a quant_int8 "
+                                 "model (--int8)")
+        self._fixed_runner = runner
+        self.model = (None if model is None
+                      else model.to(resolve_device(device)).eval())
         self.input_size = input_size
         self.batch_size = batch_size
         self.max_delay_s = max_delay_s
@@ -145,8 +160,10 @@ class DepthServingEngine:
 
     def stats(self) -> dict:
         """Serving counters and end-to-end latency quantiles (ms):
-        submitted/completed/failed, batches, mean batch fill, p50/p95/p99
-        over a recent-sample reservoir."""
+        submitted/completed/failed, batches, mean batch fill, the wall
+        seconds spent inside the runners (upload, forward, readback;
+        ``runner_seconds``), p50/p95/p99 over a recent-sample
+        reservoir."""
         return self._stats.snapshot()
 
     def reset_stats(self) -> None:
@@ -229,6 +246,7 @@ class DepthServingEngine:
         frames = [bgr for bgr, _, _ in items]
         futures = [fut for _, fut, _ in items]
         failed = False
+        t0 = time.monotonic()
         try:
             depths = (runner or self._runner(frames[0].shape))(frames)
             for fut, depth in zip(futures, depths):
@@ -240,7 +258,7 @@ class DepthServingEngine:
                     fut.set_exception(exc)
         done = time.monotonic()
         self._stats.note_batch(len(items), [done - t for _, _, t in items],
-                               failed)
+                               failed, done - t0)
 
     def _freeze_and_serve(self, shape: tuple) -> None:
         """Calibrate once on the backlog held for ``shape``, keep the
@@ -282,4 +300,4 @@ class DepthServingEngine:
                         or len(items) < self.batch_size):
                     self._freeze_and_serve(shape)
                 continue
-            self._serve_items(items)
+            self._serve_items(items, self._fixed_runner)

@@ -19,8 +19,17 @@ The JAX package's ``train/depth_task.py`` on one card:
 The state is a ``DepthTrainState`` (model, optimizer, step). The step
 updates it in place, as the JAX step donates its state, and returns it.
 
+Distillation (``distill_encoder``, then ``set_teacher``): a frozen teacher
+``DepthAnythingV2``, outside the train state and with no optimizer state,
+runs under ``torch.no_grad()`` on each training chunk, and
+``distill_weight * silog(pred, teacher, mask)`` joins the loss, masked to
+the teacher's own ``[min_depth, max_depth]``; ``metrics["distill"]``
+records the term. The step reads the teacher each time it runs, so a
+teacher set after a first step takes effect at the next (the JAX step's
+cache key leaves the teacher out and keeps the step built before).
+
 Not ported (ROADMAP): the device mesh, tensor/sequence parallelism, FSDP,
-pipeline parallelism, token merging, int8 and distillation.
+pipeline parallelism. Token merging and int8 are for inference.
 """
 
 from __future__ import annotations
@@ -77,8 +86,13 @@ class DepthTask:
         policy: DtypePolicy = POLICY_BF16,
         grad_checkpoint: bool = True,
         device: str | torch.device = "cuda",
+        distill_encoder: str | None = None,
+        distill_weight: float = 1.0,
     ):
         self.encoder = encoder
+        self.distill_encoder = distill_encoder
+        self.distill_weight = float(distill_weight)
+        self.teacher: DepthAnythingV2 | None = None
         self.min_depth = float(min_depth)
         self.max_depth = float(max_depth)
         self.policy = policy
@@ -118,19 +132,47 @@ class DepthTask:
                                   for s in steps], np.float32)
                 for name, lr in zip(("encoder", "decoder"), self._lrs)}
 
+    def set_teacher(self, teacher_params: Mapping[str, Any]) -> None:
+        """Install frozen teacher weights (a DAv2 state dict of the
+        ``distill_encoder`` model) for distillation. The teacher is built
+        here, in eval mode, with no gradient and no optimizer state; its
+        weights are copies, never the student's tensors."""
+        if self.distill_encoder is None:
+            raise ValueError("task was built without distill_encoder")
+        teacher = build_depth_model(self.distill_encoder, self.max_depth,
+                                    self.policy.compute_dtype, self.device)
+        teacher.load_state_dict(_merge_params(teacher.state_dict(),
+                                              teacher_params))
+        self.teacher = teacher.requires_grad_(False).eval()
+
     # ------------------------------------------------------------- loss core
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
     def _loss_and_metrics(self, model: DepthAnythingV2, image: torch.Tensor,
-                          depth: torch.Tensor, max_depth: torch.Tensor
+                          depth: torch.Tensor, max_depth: torch.Tensor,
+                          distill: bool = False
                           ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """SiLog and the metrics; with ``distill`` and a teacher set, the
+        distillation term too."""
         pred = model(image)                                  # (b, h, w) f32
         gt = depth[..., 0] if depth.dim() == 4 else depth
-        mask = (gt >= self.min_depth) & (gt <= max_depth[:, None, None])
+        maxd = max_depth[:, None, None]
+        mask = (gt >= self.min_depth) & (gt <= maxd)
         loss = silog_loss(pred, gt, mask)
-        return loss, compute_depth_errors(pred.detach(), gt, mask)
+        metrics = compute_depth_errors(pred.detach(), gt, mask)
+        if distill and self.teacher is not None:
+            # Soft targets from the frozen teacher, the same SiLog distance
+            # as the hard loss, masked to the teacher's range (values below
+            # min_depth would hit the loss's log guard).
+            with torch.no_grad():
+                t_pred = self.teacher(image)
+            t_mask = (t_pred >= self.min_depth) & (t_pred <= maxd)
+            term = silog_loss(pred, t_pred, t_mask)
+            loss = loss + self.distill_weight * term
+            metrics["distill"] = term.detach()
+        return loss, metrics
 
     def _max_depth(self, batch: Mapping[str, Any], shape) -> torch.Tensor:
         if "max_depth" in batch:
@@ -160,17 +202,19 @@ class DepthTask:
         optimizer.zero_grad()
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         loss_sum = zero
-        met_sum = {k: zero for k in METRIC_KEYS}
+        keys = METRIC_KEYS + (("distill",) if self.teacher is not None
+                              else ())
+        met_sum = {k: zero for k in keys}
         for a, w in enumerate(weights):
             if w == 0.0:
                 continue
             loss, metrics = self._loss_and_metrics(model, image[a], depth[a],
-                                                   maxd[a])
+                                                   maxd[a], distill=True)
             # Gradients of the weighted mean: each chunk's backward adds
             # w * inv_a times its gradient into .grad.
             (loss * (w * inv_a)).backward()
             loss_sum = loss_sum + loss.detach() * w
-            met_sum = {k: met_sum[k] + metrics[k] * w for k in METRIC_KEYS}
+            met_sum = {k: met_sum[k] + metrics[k] * w for k in keys}
         optimizer.step(state.step)
         state.step += 1
         out = {k: v * inv_a for k, v in met_sum.items()}

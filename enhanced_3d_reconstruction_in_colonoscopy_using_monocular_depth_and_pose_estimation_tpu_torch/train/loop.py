@@ -130,6 +130,9 @@ def fit_depth(
                         {"train_loss": metrics["loss"],
                          **{f"Train/train_{k}": metrics[k]
                             for k in METRIC_KEYS},
+                         # the distillation term, when a teacher is set
+                         **{f"Train/train_{k}": metrics[k]
+                            for k in ("distill",) if k in metrics},
                          "lr/encoder": float(lr_table["encoder"][lr_idx]),
                          "lr/decoder": float(lr_table["decoder"][lr_idx]),
                          "epoch": epoch}, step=step)

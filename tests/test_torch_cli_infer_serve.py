@@ -25,6 +25,7 @@ from e3d_tpu.cli import infer as jinfer
 from e3d_tpu.cli import serve as jserve
 from e3d_tpu.models import depth_anything as jda
 from e3d_tpu.models.convert import synthetic_dav2_state_dict
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.cli import export_model as texport_cli
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.cli import infer as tinfer
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.cli import serve as tserve
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.data.io import decode_rgb
@@ -204,10 +205,12 @@ def test_retry_tracker_parks_and_unparks(tmp_path):
 ])
 def test_unported_flags_exit_with_code_2(env, cli, flags, item, tmp_path,
                                          capsys):
-    """``--from-export`` (ROADMAP "Export") still exits with code 2. The
-    speed dials, refused until the port had them, now run: each writes
-    every map, finite and in [0, max_depth], and moves the maps away from
-    the default run's."""
+    """Flags the port once refused now run. The speed dials each write
+    every map, finite and in [0, max_depth], and move the maps away from
+    the default run's. ``serve --from-export`` replays an artifact that
+    ``export_model`` made of the same weights and writes the live serve's
+    maps; a flag that contradicts the artifact's dials, and
+    ``--int8-calib`` with it, still exit with code 2."""
     def run(extra, out):
         if cli == "infer":
             args = _infer_args(env, env / "flat", "flat", 4)[:-2]
@@ -217,11 +220,34 @@ def test_unported_flags_exit_with_code_2(env, cli, flags, item, tmp_path,
                            + ["--device", "cpu"] + extra)
 
     if item == "Export":
-        with pytest.raises(SystemExit) as exc:
-            run(flags, tmp_path / "o")
-        assert exc.value.code == 2
-        assert f'ROADMAP, "{item}"' in capsys.readouterr().err
-        assert not (tmp_path / "o").exists()
+        artifact = str(tmp_path / flags[1])
+        texport_cli.main(["--device", "cpu", "--encoder", "vitt",
+                          "--load-from", str(env / "vitt.pth"),
+                          "--frame-hw", "64", "64", "--batch-size", "4",
+                          "--input-size", "56", "-o", artifact])
+        run([], tmp_path / "live")
+        out = run([flags[0], artifact], tmp_path / "replay")
+        assert out["served"] == N_FLAT and not out["unread"]
+        live = {p.name: np.load(p)
+                for p in sorted((tmp_path / "live").rglob("*.npy"))}
+        replay = {p.name: np.load(p)
+                  for p in sorted((tmp_path / "replay").rglob("*.npy"))}
+        assert len(live) == N_FLAT and sorted(replay) == sorted(live)
+        for name, depth in replay.items():
+            np.testing.assert_array_equal(depth, live[name])
+        capsys.readouterr()
+        for extra, what in ((["--int8"], "--int8 contradicts"),
+                            (["--token-merge", "0.3"], "--token-merge 0.3"),
+                            (["--input-size", "70"], "--input-size 70"),
+                            (["--int8", "--int8-calib", "1"],
+                             "--int8-calib does not apply")):
+            with pytest.raises(SystemExit) as exc:
+                tserve.main(_serve_args(env, env / "flat", tmp_path / "x")
+                            + ["--device", "cpu", flags[0], artifact]
+                            + extra)
+            assert exc.value.code == 2
+            assert what in capsys.readouterr().err
+        assert not (tmp_path / "x").exists()
         return
     run([], tmp_path / "default")
     run(flags, tmp_path / "dial")

@@ -26,6 +26,7 @@ from e3d_tpu.models.convert import convert_dav2, synthetic_dav2_state_dict
 from e3d_tpu.train import DepthTask as JaxDepthTask
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.cli import test_depth as ttest
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.cli import train_depth as ttrain
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core import config as cfglib
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core.dtypes import POLICY_F32
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.data.synthetic import (
     make_c3vd_fixture, make_simcol_fixture)
@@ -212,8 +213,17 @@ def test_train_then_test_on_its_checkpoint(simcol, tmp_path, monkeypatch):
 ])
 def test_unported_knobs_exit_naming_their_item(simcol, override, item,
                                                tmp_path, monkeypatch):
+    """The parallel knobs exit naming their item. Distillation and the NaN
+    checks, refused until the port had them, are no longer listed (their
+    runs: ``tests/test_torch_distill.py``, ``tests/test_torch_debug.py``)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("E3D_CONFIG_ROOT", CONFIG_ROOT)
+    if item == "Distillation and NaN checks":
+        cfg = cfglib.compose(CONFIG_ROOT, "default",
+                             _overrides(simcol) + [override])
+        assert cfg.trainer.get(override.split("=")[0].split(".")[-1])
+        assert ttrain.unported_knobs(cfg) == []
+        return
     with pytest.raises(SystemExit, match=f'ROADMAP, "{item}"'):
         ttrain.main(_overrides(simcol) + ["--device", "cpu", override])
     assert not (tmp_path / "configs").exists()

@@ -1,9 +1,9 @@
 """The port imports neither JAX nor any module of the JAX package, nor
 PyYAML, cv2 or PIL (its own YAML subset, codecs and writers take their
 place); ``train_pose --device cpu``, a vitg block, ``pointcloud --device
-cpu`` (fusion, the port's own mesher build, the FFT Poisson mesh) and
-``video_to_images`` with a YAML config, and a vitt forward on the speed
-dials run without them."""
+cpu`` (fusion, the port's own mesher build, the FFT Poisson mesh),
+``video_to_images`` with a YAML config, a vitt forward on the speed
+dials, ``export_model --check`` and ``nan_checks`` run without them."""
 
 import os
 import subprocess
@@ -17,7 +17,8 @@ JAX_PACKAGE = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
 # Every module of the port; the probe fails if one is missing or leaks.
 MODULES = (
     "cli.calc_metrics", "cli.calc_stats", "cli.convert_video",
-    "cli.eval_depth_offline", "cli.infer", "cli.pointcloud",
+    "cli.eval_depth_offline", "cli.export_model", "cli.infer",
+    "cli.pointcloud",
     "cli.pointcloud_model", "cli.serve", "cli.test_depth",
     "cli.train_depth", "cli.train_pose", "cli.video_depth",
     "cli.video_to_images",
@@ -32,7 +33,8 @@ MODULES = (
     "ops.augment", "ops.flash_attention", "ops.quant", "ops.quaternion",
     "ops.resize", "ops.token_merge",
     "recon", "recon.native", "recon.ply", "recon.pointcloud",
-    "recon.poisson", "recon.stages", "serving.engine", "train.depth_task", "train.loop", "train.optim",
+    "recon.poisson", "recon.stages", "serving.engine", "serving.export",
+    "train.depth_task", "train.loop", "train.optim",
     "train.pose_task", "utils.cbuild", "utils.experiment",
 )
 
@@ -133,6 +135,21 @@ with tempfile.TemporaryDirectory() as tmp:
         f.write(f"video_path: {{avi}}\\noutput_dir: {{tmp}}/frames\\n"
                 "fps: null\\nstart_time: 0.0\\nend_time: null\\n")
     assert video_to_images.main(["--config", cfg]) == 3
+
+    # Export and replay (torch.export, the kernel ops), and a NaN check.
+    from {PORT}.cli import export_model
+    from {PORT}.core.debug import nan_checks
+    meta = export_model.main(["--device", "cpu", "--encoder", "vitt",
+                              "--frame-hw", "56", "56", "--batch-size", "1",
+                              "--input-size", "56", "--check",
+                              "-o", os.path.join(tmp, "p.pt2")])
+    assert meta["check_max_abs"] == 0.0
+    with nan_checks():
+        try:
+            torch.tensor([float("nan")]) * 2
+            raise AssertionError("nan_checks let a NaN through")
+        except FloatingPointError:
+            pass
 """
 
 

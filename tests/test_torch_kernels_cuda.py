@@ -873,3 +873,112 @@ def test_speed_dials_on_card(card):
     assert flash_attention.launches - k1 == 2 * 12
     with pytest.raises(RuntimeError, match="no backward"):
         model(x)
+
+
+# ------------------------------------------- the kernels as torch ops
+
+
+def _op_cases(card):
+    """Each ``e3d::`` op's arguments on the card, with the plain version
+    of the same call and the counter its launch adds to."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant as tq
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
+
+    q, k, v = _packed_qkv(2, 130, 4, 64, seed=11, card=card)
+    o, lse = flash_attention(q, k, v)
+    gen = torch.Generator(device=card).manual_seed(12)
+    do = torch.randn(q.shape, generator=gen, device=card,
+                     dtype=torch.bfloat16)
+    x6 = torch.randn((1, 128, 9, 9), generator=gen, device=card).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    rows = torch.randn((40, 256), generator=gen, device=card)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (40, 64), generator=gen,
+                        device=card, dtype=torch.int32)
+    xs = torch.rand(40, generator=gen, device=card)
+    ws = torch.rand(64, generator=gen, device=card)
+    return {
+        "K1": (fa._fwd_op, (q, k, v, "K1"), flash_attention,
+               lambda: flash_attention_reference(q, k, v)),
+        "K4": (fa._fwd_op, (q, k, v, "K4"), fa.flash_attention_pair,
+               lambda: flash_attention_reference(q, k, v)),
+        "K5": (fa._fwd_op, (q, k, v, "K5 pipe"), fa.flash_attention_heads,
+               lambda: flash_attention_reference(q, k, v)),
+        "K2": (fa._bwd_op, (q, k, v, o, lse, do, True),
+               fa.flash_attention_bwd_fused,
+               lambda: torch.stack(fa.flash_attention_bwd_reference(
+                   q, k, v, o, lse, do), 2)),
+        "K3": (fa._bwd_op, (q, k, v, o, lse, do, False),
+               fa.flash_attention_bwd_split,
+               lambda: torch.stack(fa.flash_attention_bwd_reference(
+                   q, k, v, o, lse, do), 2)),
+        "K6": (tres._lerp_op, (x6, 17, 33), tres.lerp_resize,
+               lambda: tres.lerp_resize_reference(x6, (17, 33))),
+        "Q1": (tq._quantize_op, (rows, None), tq.quantize_int8,
+               lambda: tq.quantize_int8_reference(rows)),
+        "Q2": (tq._dequantize_op, (acc, xs, ws, None, torch.bfloat16,
+                                   False), tq.dequantize_int32,
+               lambda: tq.dequantize_int32_reference(acc, xs, ws, None,
+                                                     torch.bfloat16)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["K1", "K4", "K5", "K2", "K3", "K6", "Q1",
+                                  "Q2"])
+def test_ops_launch_their_kernels(name, card):
+    """Each op's CUDA kernel launches the kernel (one count on its public
+    function) and agrees with the plain version: the attention within
+    the tolerances above, K6 within one bf16 step, Q1 and Q2 bit for
+    bit. Its fake implementation gives the real output's metadata."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, counter, plain = _op_cases(card)[name]
+    before = counter.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = plain()
+    got = out if isinstance(out, tuple) else (out,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name in ("Q1", "Q2"):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+    elif name == "K6":
+        assert _ulp_ok(got[0], want[0])
+    elif name in ("K2", "K3"):
+        assert _rel_err(got[0], want[0]) <= BWD_TOL
+    else:
+        assert (got[0].float() - want[0].float()).abs().max() <= 2e-2
+        assert (got[1] - want[1]).abs().max() <= 1e-3
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = op(*(mode.from_tensor(a) if torch.is_tensor(a) else a
+                    for a in args))
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    for f, g in zip(fake, got):
+        assert (f.shape, f.dtype, f.stride()) == (g.shape, g.dtype,
+                                                  g.stride()), name
+
+
+@pytest.mark.cuda
+def test_exported_replay_counts_its_launches(card, tmp_path):
+    """A vitt program exported on the card replays through K1 (one launch
+    a block, counted inside the op) and equals the live program."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.serving import export as texport
+
+    model = tda.build_depth_model("vitt", 20.0, device=card)
+    params = model.state_dict()
+    path = str(tmp_path / "vitt.pt2")
+    meta = texport.export_depth_program(model, params, path, (60, 80),
+                                        batch_size=2, input_size=56)
+    assert meta["platforms"] == ["cuda"] and meta["forward_schedule"] == "K1"
+    prog = texport.load_exported(path)
+    x = torch.rand((2, 60, 80, 3), generator=torch.Generator().manual_seed(
+        0)).numpy()
+    before = flash_attention.launches
+    got = prog(params, x)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 4  # vitt: four blocks
+    live = texport._program(model, tuple(meta["net_hw"]), (60, 80))(
+        params, torch.from_numpy(x).to(card))
+    assert type(live) is torch.Tensor and live.device.type == "cuda"
+    assert (got - live).abs().max() <= 1e-3 * max(live.abs().max(), 1.0)

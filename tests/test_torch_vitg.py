@@ -67,6 +67,39 @@ def test_swiglu_matches_jax(dtype, tol):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_int8_matches_jax(dtype):
+    """``SwiGLU(quant=True)`` (W8A8, the int8 dial on vitg's FFN) against
+    the JAX package's at dim 64 with the same weights: f32 within 1e-5;
+    in bf16 the two frameworks round in different places before each
+    quantization, so the int8 distance is held to twice the plain bf16
+    FFN's distance between them."""
+    dim = 64
+    hidden = tdino.swiglu_hidden(dim)
+    x = np.random.default_rng(0).normal(size=(2, 9, dim)).astype(np.float32)
+    jdtype, tdtype = getattr(jnp, dtype), getattr(torch, dtype)
+    params = jax.jit(JaxSwiGLU(hidden, dim, jdtype).init)(
+        jax.random.PRNGKey(1), x)["params"]
+    mlp = jax.tree_util.tree_map(np.asarray, params)
+    sd = from_jax_params({"pretrained": {"blocks_0": {"mlp": mlp}}})
+    tmod = tdino.SwiGLU(dim, hidden)
+    tmod.load_state_dict(_strip(sd, "pretrained.blocks.0.mlp."), strict=True)
+    dist = {}
+    for quant in (False, True):
+        jmod = JaxSwiGLU(hidden, dim, jdtype, quant=quant)
+        with jax.default_matmul_precision("highest"):
+            want = np.asarray(jax.jit(jmod.apply)(
+                {"params": params}, jnp.asarray(x, jdtype)), np.float32)
+        with torch.no_grad():
+            got = tmod(torch.from_numpy(x).to(tdtype), quant=quant)
+        assert got.dtype == tdtype
+        dist[quant] = float(np.abs(got.float().numpy() - want).max())
+    if dtype == "float32":
+        assert dist[True] <= 1e-5, dist
+    else:
+        assert dist[True] <= 2 * dist[False], dist
+
+
 @pytest.mark.parametrize("hw,fused", [((56, 56), False), ((56, 84), True)],
                          ids=["xla", "pallas"])
 def test_swiglu_dinovit_taps_match_jax(hw, fused):
