@@ -108,7 +108,21 @@ port's paths at vitl width with seeded random weights:
   giving the plain step's loss bit for bit;
 - NaN checks (phase "nan"): ``nan_checks`` names block 3's op for a NaN
   weight in a vitl forward and raises on a NaN made in the backward, both
-  run through without it, and a vitl step is timed with and without it.
+  run through without it, and a vitl step is timed with and without it;
+- the parallel modes (phase "parallel"): the train_depth CLI phase's run
+  (vitl 518 px, global microbatch 8, accum 2, two steps) with each rank
+  a process started as torchrun would (``--rank-worker``): DP and FSDP at
+  world 1 on NCCL, then DP, TP and TP+SP with two ranks sharing the card
+  over gloo (NCCL refuses two ranks on one device): each run's losses
+  within 1e-3 of the plain run's and its update within 0.5 of the plain
+  run's in relative norm, every rank's launches the plain run's, every
+  parameter moved and finite, TP's peak memory per rank below the world-1
+  run's, ms a step; FSDP, GPipe and interleaved with two ranks must stop
+  at DepthTask's refusal (gloo has no all-gather, reduce-scatter or
+  send/recv of CUDA tensors) on every rank;
+- preemption (phase "preempt"): a train_depth process at vitl gets
+  SIGTERM once it logs its first step, exits 0 with ``latest/`` and
+  ``preempted`` 1, and ``trainer.resume=true`` reaches ``max_steps``.
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -1807,7 +1821,7 @@ def phase_train_cli(tmp: str, smi: str) -> tuple:
                        for s in saved):
         raise AssertionError(f"train_depth CLI: launches {counts}, want "
                              f"{want}; records {records}; checkpoint {saved}")
-    return counts, ckpt_dir, data
+    return counts, ckpt_dir, data, [r["train_loss"] for r in train]
 
 
 def phase_test_cli(ckpt_dir: str, data: list, tmp: str, smi: str) -> dict:
@@ -3466,6 +3480,340 @@ def phase_nan(smi: str) -> dict[str, int]:
     return counts
 
 
+# ------------------------------------------------------------- parallel
+
+# Phase "parallel": the train_depth CLI phase's run (its tree, vitl 518
+# px, 16-mixed, gradient checkpointing, global microbatch 8, accum 2, two
+# optimizer steps; one validation, after the second) under each parallel
+# mode, one process per rank, as torchrun starts them: (label, ranks,
+# overrides, backend). Two ranks share the one card over gloo (NCCL
+# refuses two ranks on one device). FSDP at world 1 shards over a data
+# axis of 1, which is the DP run (as the JAX package's ``fsdp_spec``).
+PARALLEL_RUNS = [
+    ("DP, world 1", 1, [], "nccl"),
+    ("FSDP, world 1", 1, ["trainer.fsdp=true"], "nccl"),
+    ("DP, 2 ranks", 2, ["trainer.mesh_data=2"], "gloo"),
+    ("TP, 2 ranks", 2, ["trainer.mesh_model=2",
+                        "trainer.tensor_parallel=true"], "gloo"),
+    ("TP+SP, 2 ranks", 2, ["trainer.mesh_model=2",
+                           "trainer.tensor_parallel=true",
+                           "trainer.seq_parallel=true"], "gloo"),
+]
+# The modes whose collectives gloo has only for CPU tensors (all-gather
+# and reduce-scatter for FSDP, send/recv for the pipeline): with two
+# ranks on the card every rank must stop at DepthTask's refusal, and any
+# other outcome fails the phase.
+PARALLEL_REFUSED = [
+    ("FSDP, 2 ranks", ["trainer.mesh_data=2", "trainer.fsdp=true"]),
+    ("GPipe, 2 ranks", ["trainer.mesh_model=2",
+                        "trainer.pipeline_parallel=2"]),
+    ("interleaved, 2 ranks", ["trainer.mesh_model=2",
+                              "trainer.pipeline_parallel=2",
+                              "++trainer.pipe_virtual=2"]),
+]
+GLOO_REFUSAL = ("needs collectives of CUDA tensors that the gloo backend "
+                "does not have")
+# Against the plain run (fixed before the card runs that read them): each
+# step's loss within PARALLEL_RTOL (bf16 and another reduction order;
+# the sound runs read at most 1.3e-4); the newest checkpoint's update
+# from the seeded init within PARALLEL_UPDATE_RTOL of the plain run's in
+# relative norm (Adam turns gradients at bf16 rounding level into
+# steps of either sign; a gradient not summed over a group moves a large
+# share of the elements the other way), and every element within twice
+# the steps' learning rates of the plain run's.
+PARALLEL_RTOL = 1e-3
+PARALLEL_UPDATE_RTOL = 0.5
+
+
+def _rank_worker(spec_path: str) -> int:
+    """One rank of a run (``chip_smoke.py --rank-worker spec.json``):
+    ``cli.train_depth.main`` in the spec's directory, then its launch
+    counts, seconds and peak memory (or its error) into the spec's
+    output file."""
+    import os
+
+    import torch
+
+    with open(spec_path, encoding="utf-8") as f:
+        spec = json.load(f)
+    os.chdir(spec["cwd"])
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    train_depth = importlib.import_module(f"{PKG}.cli.train_depth")
+    result = {"rank": int(os.environ.get("RANK", "0"))}
+    _video_counts(fa, rz, zero=True)
+    t0 = time.perf_counter()
+    try:
+        out = train_depth.main(spec["overrides"])
+        torch.cuda.synchronize()
+        result.update(ok=True, run_dir=out["run_dir"],
+                      ckpt_dir=out["ckpt_dir"])
+    except Exception as exc:  # reported by the phase, which decides
+        result.update(ok=False, error=f"{type(exc).__name__}: {exc}")
+    result.update(seconds=time.perf_counter() - t0,
+                  counts=_video_counts(fa, rz),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with open(spec["out"], "w", encoding="utf-8") as f:
+        json.dump(result, f)
+    return 0 if result["ok"] else 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_ranks(ranks: int, overrides: list, backend: str, cwd: str,
+                 pipe: bool = False):
+    """Start ``ranks`` rank workers on the card (every rank
+    ``LOCAL_RANK=0``); returns the processes and their spec files."""
+    import os
+
+    os.makedirs(cwd, exist_ok=True)
+    port = _free_port()
+    procs, outs = [], []
+    for rank in range(ranks):
+        out = os.path.join(cwd, f"rank{rank}.json")
+        spec = os.path.join(cwd, f"spec{rank}.json")
+        with open(spec, "w", encoding="utf-8") as f:
+            json.dump({"cwd": cwd, "overrides": overrides, "out": out}, f)
+        env = dict(os.environ)
+        if backend:
+            env.update(RANK=str(rank), WORLD_SIZE=str(ranks),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), E3D_DIST_BACKEND=backend)
+        log = open(os.path.join(cwd, f"rank{rank}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             spec], env=env, cwd=cwd, text=True,
+            stdout=subprocess.PIPE if pipe else log,
+            stderr=subprocess.STDOUT))
+        outs.append(out)
+    return procs, outs
+
+
+def _finish_ranks(procs, outs, timeout: float) -> list[dict]:
+    import os
+
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for p, out in zip(procs, outs):
+        if os.path.exists(out):
+            with open(out, encoding="utf-8") as f:
+                results.append(json.load(f))
+        else:
+            log = out.replace(".json", ".log")
+            tail = open(log).read()[-1500:] if os.path.exists(log) else ""
+            results.append({"ok": False, "error": f"exit {p.returncode}, "
+                            f"no result; log tail: {tail}"})
+    return results
+
+
+def _newest_state(ckpt_dir: str) -> tuple[int, dict]:
+    """(step, model state) of the newest save in a checkpoint dir."""
+    import glob
+    import os
+
+    import torch
+
+    paths = glob.glob(os.path.join(ckpt_dir, "*", "state.pt")) + \
+        glob.glob(os.path.join(ckpt_dir, "latest", "*", "state.pt"))
+    step, path = max((int(os.path.basename(os.path.dirname(p))), p)
+                     for p in paths)
+    return step, torch.load(path, map_location="cuda",
+                            weights_only=True)["model"]
+
+
+def _update_gap(init: dict, plain: dict, state: dict) -> tuple:
+    """(max |state - plain|, ||(state - init) - (plain - init)|| /
+    ||plain - init||) over every parameter."""
+    import torch
+
+    worst = torch.zeros((), device="cuda")
+    num = torch.zeros((), device="cuda", dtype=torch.float64)
+    den = torch.zeros((), device="cuda", dtype=torch.float64)
+    for k, v in init.items():
+        got, want = state[k].float(), plain[k].float()
+        worst = torch.maximum(worst, (got - want).abs().max())
+        num += (got - want).double().square().sum()
+        den += (want - v.float()).double().square().sum()
+    return worst.item(), (num / den).sqrt().item()
+
+
+def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
+                   plain_ckpt: str, smi: str) -> dict[str, dict]:
+    """Phase "parallel" (``PARALLEL_RUNS``): each run's per-step losses
+    (rank 0 logs the global batch's) within ``PARALLEL_RTOL`` of the
+    train_depth CLI phase's plain run, and its newest checkpoint's update
+    within ``PARALLEL_UPDATE_RTOL`` of the plain run's; every rank's
+    launches those of the plain run's schedule with one validation (K1 48
+    and the backward 24 a microbatch, K1 24 a validation batch: DP splits
+    the rows, TP runs K1 and K2 at 8 of vitl's 16 heads a rank); every
+    parameter of the newest checkpoint moved from the seeded init and is
+    finite; TP's peak memory per rank below the world-1 run's (each rank
+    holds its slices of the split projections and their moments). Each
+    run of ``PARALLEL_REFUSED`` must stop at DepthTask's gloo refusal on
+    every rank. Prints ms a step (``StepTimer``), seconds and peak memory
+    per rank. Returns the launches by run (summed over its ranks)."""
+    import math
+    import os
+
+    import torch
+
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    init = da.build_depth_model("vitl", device="cuda", seed=42).state_dict()
+    init.pop("pretrained.mask_token")  # unused: no gradient, never moves
+    plain_step, plain = _newest_state(plain_ckpt)
+    overrides = cli_data + [f"trainer.accumulate_grad_batches="
+                            f"{TRAIN_CLI_ACCUM}", "++trainer.max_steps=2",
+                            "trainer.val_check_interval=1.0",
+                            "trainer.log_every_n_steps=1",
+                            "++trainer.distributed=true"]
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    microbatches = TRAIN_CLI_FRAMES // BATCH
+    want = _want(K1=2 * BLOCKS * microbatches
+                 + BLOCKS * -(-2 * TRAIN_CLI_FRAMES // BATCH),
+                 **{_bwd_name(fa._BWD_FUSED): BLOCKS * microbatches})
+    by_run, peaks = {}, {}
+    for label, ranks, extra, backend in PARALLEL_RUNS:
+        cwd = os.path.join(tmp, "parallel", label.replace(" ", "_")
+                           .replace(",", ""))
+        procs, outs = _start_ranks(ranks, overrides + extra, backend, cwd)
+        results = _finish_ranks(procs, outs, timeout=420)
+        failed = [r for r in results if not r.get("ok")]
+        if failed:
+            raise AssertionError(f"parallel {label} ({backend}): {failed}")
+        records = _read_log(os.path.join(cwd, results[0]["run_dir"]))
+        train = [r for r in records if "train_loss" in r]
+        losses = [r["train_loss"] for r in train]
+        lr_sum = sum(max(r["lr/encoder"], r["lr/decoder"]) for r in train)
+        perf = next(r for r in records if "perf/step_time_mean_s" in r)
+        step, state = _newest_state(os.path.join(cwd,
+                                                 results[0]["ckpt_dir"]))
+        still = sorted(k for k, v in init.items() if torch.equal(v, state[k]))
+        bad = sorted(k for k, v in state.items()
+                     if not torch.isfinite(v).all())
+        worst, gap = _update_gap(init, plain, state)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        counts = [r["counts"] for r in results]
+        peaks[label] = max(r["peak_gib"] for r in results)
+        print(f"parallel {label} ({backend}), vitl 518 px, global "
+              f"microbatch {BATCH}, accum {TRAIN_CLI_ACCUM}: losses "
+              f"{[round(x, 5) for x in losses]} (plain "
+              f"{[round(x, 5) for x in plain_losses]}, rel. "
+              f"{[f'{x:.2e}' for x in rel]}); update against the plain "
+              f"run's: {gap:.3e} in relative norm, max |diff| {worst:.3e} "
+              f"(2 lr {2 * lr_sum:.3e}); "
+              f"{perf['perf/step_time_mean_s'] * 1e3:.1f} "
+              f"ms a step (StepTimer, rank 0); seconds per rank "
+              f"{[round(r['seconds'], 1) for r in results]}; peak memory "
+              f"per rank {[round(r['peak_gib'], 2) for r in results]} GiB; "
+              f"K1/K2 per rank {[(c['K1'], c['K2']) for c in counts]} "
+              f"(want {want['K1']}/{want['K2']}); "
+              f"checkpoint step {step}; {smi}")
+        if len(losses) != len(plain_losses) or max(rel) > PARALLEL_RTOL \
+                or any(not math.isfinite(x) for x in losses) \
+                or any(c != want for c in counts) or still or bad \
+                or step != 2 or plain_step != 2 \
+                or not gap <= PARALLEL_UPDATE_RTOL \
+                or not worst <= 2 * lr_sum * 1.01:
+            raise AssertionError(
+                f"parallel {label}: losses {losses} vs {plain_losses}, "
+                f"update gap {gap} (max {worst}, 2 lr {2 * lr_sum}), "
+                f"counts {counts} vs {want}, unchanged {still[:8]}, "
+                f"non-finite {bad[:8]}, step {step} (plain {plain_step})")
+        by_run[label] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        del state
+        torch.cuda.empty_cache()
+    if not peaks["TP, 2 ranks"] < peaks["DP, world 1"]:
+        raise AssertionError(f"parallel: TP holds whole weights: {peaks}")
+    for label, extra in PARALLEL_REFUSED:
+        cwd = os.path.join(tmp, "parallel", label.replace(" ", "_")
+                           .replace(",", ""))
+        procs, outs = _start_ranks(2, overrides + extra, "gloo", cwd)
+        results = _finish_ranks(procs, outs, timeout=300)
+        errors = sorted({r.get("error", "").splitlines()[0][:400]
+                         if r.get("error") else "" for r in results})
+        print(f"parallel {label} (gloo): refused with two ranks on one "
+              f"card: {errors}")
+        if any(r.get("ok") or GLOO_REFUSAL not in r.get("error", "")
+               for r in results):
+            raise AssertionError(f"parallel {label}: want DepthTask's gloo "
+                                 f"refusal on every rank, got {results}")
+    print(f"parallel: ran {sorted(by_run)}; refused up front with two ranks "
+          f"on one card over gloo: {[r[0] for r in PARALLEL_REFUSED]}")
+    return by_run
+
+
+def phase_preempt(tmp: str, cli_data: list, smi: str) -> dict[str, int]:
+    """Phase "preempt": a train_depth process at vitl 518 px (the
+    train_depth CLI phase's tree and config, max_steps 4, no validation
+    before the last step) gets SIGTERM once it logs its first step: it
+    exits 0 with ``latest/`` at the step it stopped after and
+    ``preempted`` 1; ``trainer.resume=true`` reaches step 4 from there.
+    Prints the seconds from the signal to the exit. Returns the first
+    run's launches."""
+    import os
+    import signal
+
+    ckpt_mod = importlib.import_module(f"{PKG}.core.checkpoint")
+    cwd = os.path.join(tmp, "preempt")
+    overrides = cli_data + [f"trainer.accumulate_grad_batches="
+                            f"{TRAIN_CLI_ACCUM}", "++trainer.max_steps=4",
+                            "trainer.val_check_interval=100",
+                            "trainer.log_every_n_steps=1"]
+    procs, outs = _start_ranks(1, overrides, "", cwd, pipe=True)
+    proc = procs[0]
+    t_signal = None
+    for line in proc.stdout:
+        if t_signal is None and line.startswith("[metrics]") \
+                and "train_loss" in line and " step=1 " in line:
+            proc.send_signal(signal.SIGTERM)
+            t_signal = time.perf_counter()
+    proc.wait(timeout=300)
+    t_exit = time.perf_counter()
+    first = _finish_ranks(procs, outs, timeout=10)[0]
+    if t_signal is None or proc.returncode != 0 or not first.get("ok"):
+        raise AssertionError(f"preempt: rc {proc.returncode}, signal sent "
+                             f"{t_signal is not None}, {first}")
+    ckpt_dir = os.path.join(cwd, first["ckpt_dir"])
+    mgr = ckpt_mod.CheckpointManager(ckpt_dir)
+    stopped, metrics = mgr.latest_step(), mgr.latest_metrics() or {}
+    print(f"preempt: SIGTERM after step 1 was logged; exit 0 "
+          f"{t_exit - t_signal:.2f} s after the signal; latest/ at step "
+          f"{stopped} with preempted {metrics.get('preempted')}; launches "
+          f"{first['counts']}; {smi}")
+    if metrics.get("preempted") != 1.0 or stopped not in (1, 2, 3):
+        raise AssertionError(f"preempt: latest step {stopped}, metrics "
+                             f"{metrics}")
+    procs, outs = _start_ranks(1, overrides + ["++trainer.resume=true"], "",
+                               cwd)
+    second = _finish_ranks(procs, outs, timeout=300)[0]
+    resumed = ckpt_mod.CheckpointManager(ckpt_dir)
+    print(f"preempt: resume from step {stopped} reached step "
+          f"{resumed.latest_step()} in {second.get('seconds', 0):.1f} s; "
+          f"launches {second.get('counts')}")
+    if not second.get("ok") or resumed.latest_step() != 4 \
+            or "preempted" in (resumed.latest_metrics() or {}):
+        raise AssertionError(f"preempt: resume {second}, latest "
+                             f"{resumed.latest_step()}")
+    return first["counts"]
+
+
+
 def main() -> int:
     import torch
 
@@ -3538,11 +3886,16 @@ def main() -> int:
         exported = phase_export(bgr, os.path.join(tmp, "incoming"), tmp,
                                 smi)
         torch.cuda.empty_cache()
-        train_cli, ckpt_dir, cli_data = phase_train_cli(tmp, smi)
+        train_cli, ckpt_dir, cli_data, cli_losses = phase_train_cli(tmp,
+                                                                     smi)
         torch.cuda.empty_cache()
         distill = phase_distill(cli_data, tmp, smi)
         torch.cuda.empty_cache()
         test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(tmp, cli_data, cli_losses, ckpt_dir,
+                                  smi)
+        preempt = phase_preempt(tmp, cli_data, smi)
         torch.cuda.empty_cache()
         nan = phase_nan(smi)
         torch.cuda.empty_cache()
@@ -3577,7 +3930,9 @@ def main() -> int:
                "vitg_serve": vitg_serve, "vitg_grads": vitg_grads,
                "pose": pose, "pointcloud": recon_pc,
                "pointcloud_model": recon_model, **exported,
-               "distill": distill, "nan": nan}
+               "distill": distill, "nan": nan, "preempt": preempt,
+               **{f"parallel {label}": counts
+                  for label, counts in parallel.items()}}
 
     k1["launches"] = serve["K1"]
     k1["launches_by_path"] = {"video": video["default"]["K1"]}
@@ -3629,4 +3984,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
+        sys.exit(_rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -8,8 +8,8 @@ Usage (``--device cpu`` runs on the CPU, the card is the default):
 - ``CHECKPOINT_PATH`` is a torch ``.pth``/``.ckpt`` DAv2 state dict, or a
   directory of the port's own checkpoints (``core.checkpoint``: the best
   save by val_loss, else the newest). A directory of the JAX package's
-  Orbax checkpoints raises: reading one needs jax (ROADMAP "Tools", the
-  Orbax converter).
+  Orbax checkpoints raises: convert it first with ``orbax_to_torch.py``
+  at the repo root (it needs jax).
 - Per-procedure metrics for SimCol (the procedure parsed from the
   ``SyntheticColon_*/Frames_*`` path), mean/std aggregation, and overall
   metrics: the mean and std across procedures of their means (the
@@ -20,6 +20,16 @@ Usage (``--device cpu`` runs on the CPU, the card is the default):
 
 Per-sample metrics are true per-sample values, as in the JAX package
 (the reference appends the batch mean once per sample).
+
+Under ``torchrun`` the mesh knobs are ``train_depth``'s
+(``trainer.distributed``, ``mesh_data``, ``mesh_model``,
+``tensor_parallel``, ``seq_parallel``, ``pipeline_parallel``,
+``pipe_microbatches``, ``pipe_virtual``): the test loader shards each
+batch over the ranks, the per-sample metrics are gathered over the ranks
+and each rank keeps its own rows (an even split of a batch the loader
+replicated), so every sample is counted exactly once, and each rank
+writes its rows' results as ``<ds_type>_results_p<rank>.json``, as the
+JAX package's processes do.
 """
 
 from __future__ import annotations
@@ -49,8 +59,12 @@ def main(argv: list[str] | None = None) -> dict:
     from ..core.dtypes import policy_from_precision
     from ..data.preprocess import DevicePreprocessor
     from ..models.convert import load_or_init_depth_model
+    import torch.distributed as dist
+
+    from ..parallel import mesh as meshlib
     from ..train.depth_task import DepthTask
-    from .train_depth import (build_datamodule, resolve_max_depth,
+    from .train_depth import (build_datamodule, build_parallel,
+                              parallel_knobs, resolve_max_depth,
                               split_device, unported_knobs)
 
     argv = sys.argv[1:] if argv is None else argv
@@ -60,12 +74,14 @@ def main(argv: list[str] | None = None) -> dict:
     refused = unported_knobs(cfg, training=False)
     if refused:
         raise SystemExit("[test_depth] refused: " + "; ".join(refused))
+    device, mesh = build_parallel(cfg, device)
 
     checkpoint_path = os.environ.get("CHECKPOINT_PATH")
     if not checkpoint_path:
         raise SystemExit("CHECKPOINT_PATH env var is required")
 
     datamodule = build_datamodule(dict(cfg.dataset))
+    datamodule.rank, datamodule.world = mesh.rank, mesh.world
     datamodule.setup("test")
 
     max_depth = resolve_max_depth(cfg)
@@ -75,15 +91,18 @@ def main(argv: list[str] | None = None) -> dict:
                   if combined else None)
 
     policy = policy_from_precision(str(cfg.trainer.precision))
+    token_merge = float(cfg.model.get("token_merge", 0.0))
+    quant_int8 = bool(cfg.model.get("quant_int8", False))
     task = DepthTask(encoder=cfg.model.encoder,
                      min_depth=float(cfg.model.min_depth),
                      max_depth=max_depth, policy=policy,
-                     grad_checkpoint=False, device=device)
-    model = load_or_init_depth_model(
+                     grad_checkpoint=False, device=device,
+                     device_mesh=mesh, token_merge=token_merge,
+                     quant_int8=quant_int8, **parallel_knobs(cfg))
+    model = task.prepare(load_or_init_depth_model(
         cfg.model.encoder, max_depth, checkpoint_path, device=device,
-        dtype=policy.compute_dtype,
-        token_merge=float(cfg.model.get("token_merge", 0.0)),
-        quant_int8=bool(cfg.model.get("quant_int8", False)))
+        dtype=policy.compute_dtype, token_merge=token_merge,
+        quant_int8=quant_int8))
 
     pre = DevicePreprocessor(size=datamodule.size, device=device)
     per_proc: dict[str, dict[str, list[float]]] = {}
@@ -94,12 +113,37 @@ def main(argv: list[str] | None = None) -> dict:
     } if combined else {}
 
     for batch in datamodule.test_loader():
+        replicated = bool(batch.pop("_replicated", False))
         prepped = pre(batch, train=False, max_depths=max_depths)
-        sample_metrics = {k: v.float().cpu().numpy() for k, v in
-                          task.eval_step_per_sample(model, prepped).items()}
+        prepped["_replicated"] = replicated
+        sample_metrics = task.eval_step_per_sample(model, prepped)
+        meta = list(batch["dataset"])
         sources = (np.asarray(batch["source"]).astype(int)
                    if combined and "source" in batch else None)
-        for i, ds_field in enumerate(batch["dataset"]):
+        if mesh.world > 1:
+            # Exactly-once rows: the metrics of every rank's rows,
+            # gathered, then this rank's slice: its own loader rows, or an
+            # even split of a replicated batch (every rank holds it all).
+            if not replicated:
+                sample_metrics = {k: meshlib.gather_rows(
+                    meshlib.slot_of(v, mesh.model_group,
+                                    [len(meta)] * mesh.model),
+                    dist.group.WORLD)
+                    for k, v in sample_metrics.items()}
+            nb = len(next(iter(sample_metrics.values())))
+            if replicated:
+                lo = mesh.rank * nb // mesh.world
+                hi = (mesh.rank + 1) * nb // mesh.world
+                meta = meta[lo:hi]
+                if sources is not None:
+                    sources = sources[lo:hi]
+            else:
+                lo = mesh.rank * (nb // mesh.world)
+                hi = lo + len(meta)
+            sample_metrics = {k: v[lo:hi] for k, v in sample_metrics.items()}
+        sample_metrics = {k: v.float().cpu().numpy()
+                          for k, v in sample_metrics.items()}
+        for i, ds_field in enumerate(meta):
             proc = parse_procedure(str(ds_field))
             bucket = per_proc.setdefault(proc, {k: [] for k in METRIC_KEYS})
             # C3VD trains in the /10 cm convention; report l1/rmse back
@@ -160,11 +204,14 @@ def main(argv: list[str] | None = None) -> dict:
 
     out_dir = os.environ.get("E3D_RESULTS_DIR", "test_lightning_results")
     os.makedirs(out_dir, exist_ok=True)
-    out_path = os.path.join(out_dir, f"{cfg.dataset.ds_type}_results.json")
+    suffix = f"_p{mesh.rank}" if mesh.world > 1 else ""
+    out_path = os.path.join(out_dir,
+                            f"{cfg.dataset.ds_type}_results{suffix}.json")
     with open(out_path, "w", encoding="utf-8") as f:
         json.dump(results, f, indent=2)
     print(f"[test_depth] wrote {out_path}")
-    return results
+    # Returned, not written: the rows this rank counted, by procedure.
+    return {**results, "samples": per_proc}
 
 
 if __name__ == "__main__":

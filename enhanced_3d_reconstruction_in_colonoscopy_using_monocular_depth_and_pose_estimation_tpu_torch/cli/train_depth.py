@@ -16,9 +16,17 @@ per-step LR logging to ``<run dir>/metrics.jsonl``.
 ``trainer.distill_from`` (a teacher checkpoint of
 ``trainer.distill_encoder``, vitl by default) adds the distillation term
 of ``DepthTask``; ``trainer.debug_nans`` runs the fit under
-``core.debug.nan_checks``. The mesh and parallel knobs exit with a
-message naming their ROADMAP item ("Parallel modes"). ``ds_type: pose``
-builds the pose-pair datamodule, as the JAX package does.
+``core.debug.nan_checks``. ``ds_type: pose`` builds the pose-pair
+datamodule, as the JAX package does.
+
+The parallel modes, one process per card under ``torchrun``
+(``parallel.mesh``): ``trainer.distributed`` joins the process group
+(also joined whenever torchrun's world holds more than one process);
+``trainer.mesh_data``/``mesh_model`` lay the ranks out as the ('data',
+'model') mesh; ``trainer.tensor_parallel``, ``seq_parallel``, ``fsdp``
+(with ``fsdp_min_size``), ``pipeline_parallel``, ``pipe_microbatches``
+and ``pipe_virtual`` are ``DepthTask``'s. Rank 0 writes the snapshot,
+the metrics and the checkpoints.
 """
 
 from __future__ import annotations
@@ -60,28 +68,42 @@ def resolve_max_depth(cfg) -> float:
 
 
 def unported_knobs(cfg, training: bool = True) -> list[str]:
-    """The config's knobs that belong to later slices, each with its
-    ROADMAP item, and, for ``training``, the speed dials, which apply to
-    inference and ``test_depth`` only (the int8 ops have no backward);
-    empty when the config runs on the port."""
-    t = cfg.trainer
-    parallel = [
-        ("trainer.mesh_data", int(t.get("mesh_data", -1)) not in (-1, 1)),
-        ("trainer.mesh_model", int(t.get("mesh_model", 1)) != 1),
-        ("trainer.tensor_parallel", bool(t.get("tensor_parallel", False))),
-        ("trainer.seq_parallel", bool(t.get("seq_parallel", False))),
-        ("trainer.fsdp", bool(t.get("fsdp", False))),
-        ("trainer.pipeline_parallel", int(t.get("pipeline_parallel", 0)) > 0),
-        ("trainer.distributed", bool(t.get("distributed", False))),
-    ]
-    out = [f"{k} (ROADMAP, \"Parallel modes\")" for k, on in parallel if on]
+    """For ``training``, the speed dials, which apply to inference and
+    ``test_depth`` only (the int8 ops have no backward); empty when the
+    config runs on the port."""
     m = cfg.model
     if training and (float(m.get("token_merge", 0.0))
                      or bool(m.get("quant_int8", False))):
-        out.append("model.token_merge / model.quant_int8 apply to inference "
-                   "and test_depth, not to training (ROADMAP, \"Speed "
-                   "dials\")")
-    return out
+        return ["model.token_merge / model.quant_int8 apply to inference "
+                "and test_depth, not to training (ROADMAP, \"Speed "
+                "dials\")"]
+    return []
+
+
+def build_parallel(cfg, device: str):
+    """Join the process group when asked (or when torchrun started more
+    than one process) and lay the ranks out as the mesh of
+    ``trainer.mesh_data`` x ``trainer.mesh_model``; returns (this rank's
+    device, the mesh)."""
+    from ..parallel import mesh as meshlib
+
+    dev = meshlib.init_distributed(
+        device, required=bool(cfg.trainer.get("distributed", False)))
+    mesh = meshlib.build_mesh(meshlib.MeshSpec(
+        data=int(cfg.trainer.get("mesh_data", -1)),
+        model=int(cfg.trainer.get("mesh_model", 1))), dev)
+    return dev, mesh
+
+
+def parallel_knobs(cfg) -> dict:
+    """``DepthTask``'s parallel arguments from ``cfg.trainer``."""
+    t = cfg.trainer
+    return dict(
+        tensor_parallel=bool(t.get("tensor_parallel", False)),
+        seq_parallel=bool(t.get("seq_parallel", False)),
+        pipeline_parallel=int(t.get("pipeline_parallel", 0)),
+        pipe_microbatches=int(t.get("pipe_microbatches", 0)),
+        pipe_virtual=int(t.get("pipe_virtual", 1)))
 
 
 def split_device(argv: list[str]) -> tuple[str, list[str]]:
@@ -97,7 +119,7 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
     from ..core import config as cfglib
     from ..core.debug import nan_checks, profile_trace
     from ..core.dtypes import policy_from_precision
-    from ..core.logging import MetricLogger
+    from ..core.logging import MetricLogger, NullLogger
     from ..models.convert import (load_or_init_depth_model,
                                   load_torch_state_dict)
     from ..train.depth_task import DepthTask
@@ -111,9 +133,11 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
     refused = unported_knobs(cfg)
     if refused:
         raise SystemExit("[train_depth] refused: " + "; ".join(refused))
+    device, mesh = build_parallel(cfg, device)
 
     run_dir = cfglib.run_dir(cfg, cfg.run_dir_template)
-    cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))
+    if mesh.rank == 0:
+        cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))
 
     exp_id = experiment_id(
         cfg.model.encoder, cfg.model.encoder_lr, cfg.model.decoder_lr,
@@ -123,6 +147,7 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
     print(f"[train_depth] run dir: {run_dir}")
 
     datamodule = build_datamodule(dict(cfg.dataset))
+    datamodule.rank, datamodule.world = mesh.rank, mesh.world
     datamodule.setup("fit")
 
     accum = int(cfg.trainer.get("accumulate_grad_batches", 1))
@@ -152,6 +177,12 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
         distill_encoder=(str(cfg.trainer.get("distill_encoder", "vitl"))
                          if cfg.trainer.get("distill_from") else None),
         distill_weight=float(cfg.trainer.get("distill_weight", 1.0)),
+        device_mesh=mesh,
+        fsdp=bool(cfg.trainer.get("fsdp", False)),
+        fsdp_min_size=(int(cfg.trainer.get("fsdp_min_size"))
+                       if cfg.trainer.get("fsdp_min_size") is not None
+                       else None),
+        **parallel_knobs(cfg),
     )
 
     # Knowledge distillation: a frozen teacher from its own checkpoint
@@ -180,7 +211,8 @@ def main(argv: list[str] | None = None) -> dict[str, str]:
               f"training from random init")
 
     logger = MetricLogger(
-        run_dir, stdout_every=int(cfg.trainer.get("log_every_n_steps", 100)))
+        run_dir, stdout_every=int(cfg.trainer.get("log_every_n_steps", 100))
+    ) if mesh.rank == 0 else NullLogger()
     ckpt_dir = os.path.join("checkpoints", cfg.dataset.ds_type, exp_id)
     with contextlib.ExitStack() as stack:
         if bool(cfg.trainer.get("profile", False)):

@@ -14,8 +14,11 @@ then tests: per-procedure trajectories (the procedure parsed as
 the mean over procedures. The results go to ``$E3D_RESULTS_DIR`` (default
 ``test_lightning_results/``) as ``pose_results.json``.
 
-The mesh and parallel knobs exit naming their ROADMAP item ("Parallel
-modes"), as ``train_depth`` does.
+Under ``torchrun`` (``trainer.distributed``, ``trainer.mesh_data`` and
+``mesh_model``, as ``train_depth`` takes them) the pose step is data
+parallel (``PoseTask``); rank 0 writes the snapshot, the metrics, the
+checkpoints and the results, which every rank computes on the whole test
+set.
 """
 
 from __future__ import annotations
@@ -34,13 +37,13 @@ def main(argv: list[str] | None = None) -> dict:
 
     from ..core import config as cfglib
     from ..core.dtypes import policy_from_precision
-    from ..core.logging import MetricLogger
+    from ..core.logging import MetricLogger, NullLogger
     from ..data.pose import PoseDataModule
     from ..train.loop import fit_pose
     from ..train.pose_task import PoseTask
     from ..utils.experiment import pose_experiment_id
     from .test_depth import parse_procedure
-    from .train_depth import split_device, unported_knobs
+    from .train_depth import build_parallel, split_device, unported_knobs
 
     argv = sys.argv[1:] if argv is None else argv
     device, overrides = split_device(argv)
@@ -50,14 +53,17 @@ def main(argv: list[str] | None = None) -> dict:
     refused = unported_knobs(cfg)
     if refused:
         raise SystemExit("[train_pose] refused: " + "; ".join(refused))
+    device, mesh = build_parallel(cfg, device)
 
     run_dir = cfglib.run_dir(cfg, cfg.run_dir_template)
-    cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))
+    if mesh.rank == 0:
+        cfglib.snapshot(cfg, os.path.join(run_dir, ".hydra"))
     exp_id = pose_experiment_id(cfg.model.lr, cfg.dataset.batch_size,
                                 cfg.trainer.max_epochs)
     print(f"[train_pose] experiment: {exp_id}; run dir: {run_dir}")
 
     datamodule = PoseDataModule(**dict(cfg.dataset))
+    datamodule.rank, datamodule.world = mesh.rank, mesh.world
     datamodule.setup()
     steps_per_epoch = max(1, len(datamodule.train_loader()))
     total_steps = steps_per_epoch * int(cfg.trainer.max_epochs)
@@ -74,9 +80,10 @@ def main(argv: list[str] | None = None) -> dict:
         policy=policy_from_precision(str(cfg.trainer.precision)),
         cycle_momentum=bool(cfg.model.get("cycle_momentum", False)),
         device=device,
+        device_mesh=mesh,
     )
     logger = MetricLogger(run_dir, stdout_every=int(cfg.trainer.get(
-        "log_every_n_steps", 100)))
+        "log_every_n_steps", 100))) if mesh.rank == 0 else NullLogger()
     ckpt_dir = os.path.join("checkpoints", "pose_estimation", exp_id)
     state = fit_pose(
         task, datamodule,
@@ -121,13 +128,15 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"  {k}: {v:.6f}")
 
     out_dir = os.environ.get("E3D_RESULTS_DIR", "test_lightning_results")
-    os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, "pose_results.json")
     results = {"procedure_metrics": proc_results,
                "overall_metrics": overall, "experiment": exp_id}
-    with open(out_path, "w", encoding="utf-8") as f:
-        json.dump(results, f, indent=2)
-    print(f"[train_pose] wrote {out_path}")
+    if mesh.rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(results, f, indent=2)
+        print(f"[train_pose] wrote {out_path}")
+    mesh.barrier()
     logger.close()
     return {**results, "run_dir": run_dir, "ckpt_dir": ckpt_dir}
 

@@ -44,3 +44,15 @@ class MetricLogger:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: the ranks other than 0 of a
+    multi-process run (rank 0 logs the global metrics)."""
+
+    def log(self, metrics: Mapping[str, Any], step: int,
+            force_stdout: bool = False) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

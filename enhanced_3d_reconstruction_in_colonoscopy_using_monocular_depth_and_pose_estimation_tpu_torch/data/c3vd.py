@@ -60,6 +60,11 @@ class C3VDDataset:
 
 
 class C3VDDataModule:
+
+    # This process's rank and the world the loaders shard each batch
+    # over (set by the entry points; one process by default).
+    rank = 0
+    world = 1
     def __init__(self, data_dir: str, train_list: str, val_list: str,
                  test_list: str | None = None, ds_type: str = "c3vd",
                  batch_size: int = 64, num_workers: int = 8, size: int = 518,
@@ -92,14 +97,17 @@ class C3VDDataModule:
     def train_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.train_dataset, self.batch_size,
                               shuffle=True, drop_last=True,
-                              num_threads=self.num_workers, seed=self.seed)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world, seed=self.seed)
 
     def val_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.val_dataset, self.batch_size,
                               shuffle=False, drop_last=False,
-                              num_threads=self.num_workers)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world)
 
     def test_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.test_dataset, self.batch_size,
                               shuffle=False, drop_last=False,
-                              num_threads=self.num_workers)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world)

@@ -48,6 +48,11 @@ class CombinedDataset:
 
 
 class CombinedDataModule:
+
+    # This process's rank and the world the loaders shard each batch
+    # over (set by the entry points; one process by default).
+    rank = 0
+    world = 1
     def __init__(self, simcol_data_dir: str, simcol_train_list: str,
                  simcol_val_list: str, simcol_test_list: str,
                  c3vd_data_dir: str, c3vd_train_list: str,
@@ -91,14 +96,17 @@ class CombinedDataModule:
     def train_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.train_dataset, self.batch_size,
                               shuffle=True, drop_last=True,
-                              num_threads=self.num_workers, seed=self.seed)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world, seed=self.seed)
 
     def val_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.val_dataset, self.batch_size,
                               shuffle=False, drop_last=False,
-                              num_threads=self.num_workers)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world)
 
     def test_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.test_dataset, self.batch_size,
                               shuffle=False, drop_last=False,
-                              num_threads=self.num_workers)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world)

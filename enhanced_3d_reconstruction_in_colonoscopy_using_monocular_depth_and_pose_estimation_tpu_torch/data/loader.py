@@ -10,8 +10,10 @@ numpy batches, ready for one host-to-device copy.
 across processes as the JAX package does with ``jax.process_index()``
 and ``jax.process_count()``: every process walks the same global batch
 order (the same shuffle seed) and decodes only its contiguous
-``batch_size / world`` slice of each batch. Nothing in the port runs
-more than one process yet.
+``batch_size / world`` slice of each batch. The training entry points
+set them from the process group (``parallel.mesh``); a batch the world
+does not divide is decoded whole by every process and marked
+``_replicated``.
 """
 
 from __future__ import annotations

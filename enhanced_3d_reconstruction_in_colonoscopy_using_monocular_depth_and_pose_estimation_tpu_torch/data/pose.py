@@ -112,6 +112,11 @@ class PoseDataset:
 class PoseDataModule:
     """Loader factory with the reference datamodule's interface."""
 
+    # This process's rank and the world the loaders shard each batch
+    # over (set by the entry points; one process by default).
+    rank = 0
+    world = 1
+
     def __init__(self, data_dir: str, train_list: str, val_list: str,
                  test_list: str, ds_type: str = "simcol",
                  batch_size: int = 64, num_workers: int = 8, size: int = 518,
@@ -144,7 +149,8 @@ class PoseDataModule:
     def train_loader(self) -> PrefetchLoader:
         return PrefetchLoader(self.train_dataset, self.batch_size,
                               shuffle=True, drop_last=True,
-                              num_threads=self.num_workers, seed=self.seed)
+                              num_threads=self.num_workers,
+                              rank=self.rank, world=self.world, seed=self.seed)
 
     def val_loader(self) -> PrefetchLoader:
         # In frame order: the trajectory metrics compose consecutive pairs.

@@ -78,7 +78,8 @@ class DevicePreprocessor:
     def __call__(self, batch: dict[str, Any], train: bool,
                  generator: torch.Generator | None = None,
                  max_depths: tuple[float, float] | None = None,
-                 aug_params: aug.AugmentParams | None = None
+                 aug_params: aug.AugmentParams | None = None,
+                 rows: tuple[int, int] | None = None
                  ) -> dict[str, torch.Tensor]:
         """batch: loader output with ``image`` and ``depth`` (numpy or
         tensors). Returns {image, depth[, max_depth, source]} on the device.
@@ -86,7 +87,8 @@ class DevicePreprocessor:
         ``train`` augments with draws from ``generator`` (a CPU
         ``torch.Generator``), or with ``aug_params`` given explicitly.
         ``max_depths``: (simcol_max, c3vd_max_in_cm) for batches with a
-        ``source`` field."""
+        ``source`` field. ``rows`` (offset, total) places the batch in a
+        global batch whose draws it shares (``ops.augment.augment_batch``)."""
         image = torch.as_tensor(batch["image"]).to(self.device)
         depth = torch.as_tensor(batch["depth"]).to(self.device)
         if depth.dtype == torch.uint16:
@@ -98,7 +100,8 @@ class DevicePreprocessor:
             if generator is None:
                 raise ValueError("train=True needs a generator or "
                                  "aug_params")
-            img = aug.augment_batch(img01, generator, self.augment_cfg)
+            img = aug.augment_batch(img01, generator, self.augment_cfg,
+                                    rows)
         else:
             img = aug.preprocess_eval(img01)
 

@@ -53,8 +53,9 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
     is the port's own training output (``core.checkpoint``: the best save
     by val_loss, else the newest), a file is a DAv2 ``.pth`` or Lightning
     ``.ckpt``, and neither gives the seeded random init. A directory of
-    the JAX package's Orbax checkpoints raises ``ValueError``: reading one
-    needs jax."""
+    the JAX package's Orbax checkpoints raises ``ValueError`` naming the
+    converter (``orbax_to_torch.py`` at the repo root): reading Orbax
+    needs jax, which the port does not import."""
     from ..core.checkpoint import CheckpointManager
 
     model = build_depth_model(encoder, max_depth=max_depth, dtype=dtype,
@@ -65,9 +66,10 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
         if state is None and _looks_like_orbax(load_from):
             raise ValueError(
                 f"{load_from} holds Orbax checkpoints of the JAX package; "
-                "reading them needs jax, so convert them to a torch state "
-                "dict outside the port first (ROADMAP, \"Tools\": the "
-                "Orbax converter)")
+                "reading them needs jax: convert them to a torch state "
+                "dict first with `python orbax_to_torch.py --kind depth "
+                f"-i {load_from} -o model.pth` (at the repo root) and load "
+                "model.pth")
         if state is None:
             raise FileNotFoundError(f"no checkpoints in {load_from}")
         model.load_state_dict(state["model"])

@@ -10,6 +10,7 @@ on the device.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 import warnings
@@ -98,7 +99,10 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
         elif p.dim() >= 2 and leaf == "weight":
             transposed = name.startswith("depth_head.resize_layers.") and \
                 name.split(".")[2] in ("0", "1")
-            fan_in = p.shape[0] if transposed else p[0].numel()
+            # A ConvTranspose2d weight is (I, O, kh, kw); flax's kernel of
+            # the same layer, (kh, kw, I, O), has fan-in I * kh * kw.
+            fan_in = (p.shape[0] * p.shape[2] * p.shape[3] if transposed
+                      else p[0].numel())
             p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
         elif leaf in ("weight", "gamma"):
             p.fill_(1.0)
@@ -223,13 +227,22 @@ class BatchedRunner:
     calibration, once, on the first K batches of ``calib_frames``; the
     per-site abs-maxes are kept in ``self.amax`` and every later call runs
     under those frozen scales. Fewer frames than K batches warn; none
-    raise."""
+    raise.
+
+    ``data_parallel`` (the JAX package's rule): with more than one visible
+    card and a batch they divide, each batch is split over one replica of
+    the model per card (copies of its weights, made once), with no
+    collective; None turns it on exactly then. True with one visible card
+    (or a batch the cards do not divide) raises, naming them. Static
+    calibration runs on one card: with ``data_parallel`` None it warns and
+    stays on one, with True it raises."""
 
     def __init__(self, model: DepthAnythingV2,
                  resolution_hw: tuple[int, int], input_size: int = 518,
                  batch_size: int = 8, readback_f16: bool = False,
                  calib_frames: list[np.ndarray] | None = None,
-                 calib_batches: int = 0):
+                 calib_batches: int = 0,
+                 data_parallel: bool | None = None):
         h, w = resolution_hw
         self.model = model
         self.resolution_hw = (h, w)
@@ -238,6 +251,26 @@ class BatchedRunner:
         self.net_hw = _lower_bound_hw(h, w, input_size)
         self.device = _model_device(model)
         self.amax = None
+        n_dev = visible_cards(self.device)
+        if data_parallel and (n_dev < 2 or batch_size % n_dev):
+            raise ValueError(
+                f"data_parallel=True needs more than one visible card "
+                f"dividing the batch; {n_dev} visible, batch {batch_size}")
+        use_dp = (n_dev > 1 and batch_size % n_dev == 0
+                  if data_parallel is None else bool(data_parallel))
+        if calib_batches > 0 and use_dp and data_parallel is None:
+            warnings.warn("static int8 calibration does not compose with "
+                          "multi-device inference; falling back to "
+                          "single-chip for this run", stacklevel=2)
+            use_dp = False
+        if calib_batches > 0 and use_dp:
+            raise ValueError("static int8 calibration does not compose "
+                             "with multi-device inference yet — pass "
+                             "data_parallel=False or drop calib_batches")
+        self.replicas = [model]
+        if use_dp:
+            self.replicas += [copy.deepcopy(model).to(
+                torch.device("cuda", i)) for i in range(1, n_dev)]
         if calib_batches > 0:
             if not getattr(model, "quant_int8", False):
                 raise ValueError("calib_batches requires quant_int8=True")
@@ -257,6 +290,15 @@ class BatchedRunner:
                                                 batch_size)])
 
     def _forward(self, arr: np.ndarray) -> torch.Tensor:
+        if len(self.replicas) > 1:
+            # One slice per card, launched in turn (each card runs its
+            # own), read back together.
+            outs = [_run_batched_u8(
+                m, torch.from_numpy(part).to(_model_device(m)), self.net_hw,
+                self.resolution_hw, self.readback_f16)
+                for m, part in zip(self.replicas,
+                                   np.split(arr, len(self.replicas)))]
+            return torch.cat([o.to(self.device) for o in outs])
         x = torch.from_numpy(arr).to(self.device)
         return _run_batched_u8(self.model, x, self.net_hw,
                                self.resolution_hw, self.readback_f16)
@@ -275,6 +317,12 @@ class BatchedRunner:
                     depth = self._forward(arr)
             outputs.extend(depth[:n].cpu().numpy())
         return outputs
+
+
+def visible_cards(device: torch.device) -> int:
+    """The cards a model on ``device`` can spread a batch over (1 off
+    CUDA)."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def infer_images_batched(model: DepthAnythingV2,

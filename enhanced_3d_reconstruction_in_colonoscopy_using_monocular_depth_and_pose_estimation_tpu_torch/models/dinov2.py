@@ -26,6 +26,20 @@ the final norm; ``quant_int8`` runs the blocks' projections in W8A8
 (``ops/quant.py``) over the scope ``quant_scope`` (``auto``, ``all``,
 ``mlp`` or ``attn``; ``auto`` is ``all`` at a batch of at most 32, else
 ``mlp``, the JAX package's rule for one device).
+
+Tensor parallelism (``parallel.mesh.TensorParallel``, set on the
+modules' ``tp`` slot by ``apply_tensor_parallel``) splits each block over
+the model group, Megatron's way: the qkv projection by head (each rank's
+slice is ``(3, H/tp, D)``, and attention runs at ``H/tp`` heads), the
+MLP's ``fc1`` (SwiGLU's gate and value halves of ``w12`` alike) by output
+row, ``proj``/``fc2``/``w3`` by input column, their partial sums added
+over the group and their bias added once. Each rank holds only its slice
+of those parameters (``apply_tensor_parallel`` replaces them; the
+checkpoint layout is the whole tensors, ``parallel.mesh.tp_whole``).
+With ``seq_parallel`` the residual stream between blocks holds this
+rank's slot of the token axis (``tensor_split`` sizes, no padding): the
+stream is gathered before each split projection and reduce-scattered
+after it, and the taps are gathered whole.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from ..core.dtypes import POLICY_BF16
 from ..ops import attention as attn_ops
 from ..ops.quant import int8_dense
 from ..ops.token_merge import bipartite_merge, unmerge
+from ..parallel import mesh as meshlib
 
 VIT_ARCHS: dict[str, dict[str, Any]] = {
     "vits": dict(embed_dim=384, depth=12, num_heads=6),
@@ -79,13 +94,51 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
                         norm.bias.to(x.dtype), norm.eps)
 
 
+def _tp_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """The input of a split projection: the gathered token axis under
+    sequence parallelism, else the replicated stream."""
+    if tp.seq_parallel:
+        return meshlib.gather_rows(x, tp.group, tp.sizes, dim=1,
+                                   partial=True)
+    return meshlib.copy_to_partials(x, tp.group)
+
+
+def _tp_out(y: torch.Tensor, bias: torch.Tensor, tp) -> torch.Tensor:
+    """The sum of a row-split projection's partial outputs (this rank's
+    token slot under sequence parallelism), its bias added once."""
+    if tp.seq_parallel:
+        y = meshlib.scatter_rows(y, tp.group, tp.sizes, dim=1)
+    else:
+        y = meshlib.reduce_to_replicas(y, tp.group)
+    return y + bias.to(y.dtype)
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias, quant: bool
+           ) -> torch.Tensor:
+    if quant:
+        return int8_dense(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
+        self.tp = None
+
+    def tp_width(self) -> tuple[str, int]:
+        """What tensor parallelism splits, and its size."""
+        return "MLP width", self.fc2.in_features
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:  # fc1's rows and fc2's columns are this rank's
+            h = F.gelu(_dense(_tp_in(x, tp), self.fc1.weight, self.fc1.bias,
+                              quant))
+            return _tp_out(_dense(h, self.fc2.weight, None, quant),
+                           self.fc2.bias, tp)
         if quant:
             h = F.gelu(int8_dense(x, self.fc1.weight, self.fc1.bias))
             return int8_dense(h, self.fc2.weight, self.fc2.bias)
@@ -107,8 +160,18 @@ class SwiGLU(nn.Module):
         super().__init__()
         self.w12 = nn.Linear(dim, 2 * hidden_dim)
         self.w3 = nn.Linear(hidden_dim, dim)
+        self.tp = None
+
+    def tp_width(self) -> tuple[str, int]:
+        return "SwiGLU width", self.w3.in_features
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:  # this rank's gate and value rows, w3's columns
+            x1, x2 = _dense(_tp_in(x, tp), self.w12.weight, self.w12.bias,
+                            quant).chunk(2, dim=-1)
+            return _tp_out(_dense(F.silu(x1) * x2, self.w3.weight, None,
+                                  quant), self.w3.bias, tp)
         if quant:
             x1, x2 = int8_dense(x, self.w12.weight,
                                 self.w12.bias).chunk(2, dim=-1)
@@ -132,8 +195,19 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None
+
+    def tp_width(self) -> tuple[str, int]:
+        return "heads", self.num_heads
 
     def forward(self, x: torch.Tensor, quant: bool = False) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:  # qkv's rows (3, H/tp, D) and proj's columns
+            y = attn_ops.qkv_self_attention(
+                _tp_in(x, tp), self.qkv.weight, self.qkv.bias,
+                self.proj.weight, None, self.num_heads // tp.size,
+                quant=quant)
+            return _tp_out(y, self.proj.bias, tp)
         return attn_ops.qkv_self_attention(
             x, self.qkv.weight, self.qkv.bias, self.proj.weight,
             self.proj.bias, self.num_heads, quant=quant)
@@ -258,14 +332,10 @@ class DinoViT(nn.Module):
         self.blocks = nn.ModuleList(Block(dim, arch["num_heads"], ffn)
                                     for _ in range(arch["depth"]))
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.tp = None
 
-    def forward(self, img: torch.Tensor, tap_indices: list[int] | None = None
-                ) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """img: (B, H, W, 3), H/W multiples of 14, already normalized.
-
-        Returns [(patch_tokens (B, N, C), cls_token (B, C)), ...] per tap,
-        each with the final LayerNorm applied."""
-        taps = tap_indices or INTERMEDIATE_LAYER_IDX[self.encoder]
+    def embed(self, img: torch.Tensor) -> torch.Tensor:
+        """Patch embed, cls token and pos-embed: (B, 1 + N, C)."""
         b, h, w, _ = img.shape
         gh, gw = h // PATCH_SIZE, w // PATCH_SIZE
         proj = self.patch_embed.proj
@@ -275,7 +345,25 @@ class DinoViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)                     # (B, N, C)
         cls = self.cls_token.to(self.dtype).expand(b, 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1)
-        x = x + interpolate_pos_embed(self.pos_embed, gh, gw).to(self.dtype)
+        return x + interpolate_pos_embed(self.pos_embed, gh, gw).to(
+            self.dtype)
+
+    def forward(self, img: torch.Tensor, tap_indices: list[int] | None = None
+                ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """img: (B, H, W, 3), H/W multiples of 14, already normalized.
+
+        Returns [(patch_tokens (B, N, C), cls_token (B, C)), ...] per tap,
+        each with the final LayerNorm applied."""
+        taps = tap_indices or INTERMEDIATE_LAYER_IDX[self.encoder]
+        x = self.embed(img)
+        tp = self.tp
+        seq = tp is not None and tp.seq_parallel
+        if seq:
+            if self.token_merge > 0:
+                raise ValueError("seq_parallel does not compose with "
+                                 "token_merge")
+            tp.sizes = tp.token_sizes(x.shape[1])
+            x = meshlib.slot_of(x, tp.group, tp.sizes, dim=1)
 
         outputs: dict[int, torch.Tensor] = {}
         remat = (self.grad_checkpoint and self.training
@@ -288,7 +376,8 @@ class DinoViT(nn.Module):
             x = checkpoint(block, x, *dials, use_reentrant=False) if remat \
                 else block(x, *dials)
             if i in taps:
-                outputs[i] = x
+                outputs[i] = (meshlib.gather_rows(x, tp.group, tp.sizes,
+                                                  dim=1) if seq else x)
                 if slot_map is not None:
                     merged_taps.add(i)
             if i == merge_after:

@@ -16,6 +16,14 @@ BatchNorm (eps 1e-5, momentum 0.1) normalises as torch does, but in
 training it folds the biased batch variance into the running variance,
 as flax (and so the JAX package) does; torch folds the unbiased one.
 Dropout draws from an explicit ``torch.Generator``.
+
+Under data parallelism (``set_sync_group``) BatchNorm normalises with the
+statistics of the global batch, as the JAX package does on its global
+array: the per-channel sum and then the sum of squared deviations are
+summed over the ranks (with their gradients), and the running variance
+keeps the biased global variance. ``forward(rows=(offset, total))`` draws
+the dropout masks of all ``total`` rows of the global batch and keeps
+this rank's, so every rank's draw is the one-process run's.
 """
 
 from __future__ import annotations
@@ -27,13 +35,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..parallel import mesh as meshlib
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance takes the biased batch
     variance in training."""
 
+    sync_group = None  # the data group whose batch statistics it shares
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return self._synced(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
@@ -49,6 +62,35 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(kept + (running_var - kept) * ((n - 1) / n))
             self.num_batches_tracked.add_(1)
         return y
+
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Training BatchNorm over the global batch of the sync group."""
+        group = self.sync_group
+        xf = x.float()
+        count = torch.tensor([float(xf.numel() // xf.shape[1])],
+                             device=x.device)
+        n = meshlib.all_reduce_sum(count, group)
+        mean = meshlib.all_reduce_sum(xf.sum(dim=(0, 2, 3)), group) / n
+        xc = xf - mean[None, :, None, None]
+        var = meshlib.all_reduce_sum((xc * xc).sum(dim=(0, 2, 3)), group) / n
+        y = xc * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight[None, :, None, None] + \
+            self.bias[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Share BatchNorm's training statistics over ``group`` (None: this
+    rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -110,9 +152,13 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator) -> torch.Tensor:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    def forward(self, x: torch.Tensor, generator: torch.Generator,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """``rows`` (offset, total): ``x`` holds rows ``offset ..`` of a
+        global batch of ``total``; the mask is drawn for all of them."""
+        offset, total = rows or (0, x.shape[0])
+        keep = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[offset:offset + x.shape[0]] \
             >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
@@ -133,16 +179,17 @@ class PoseEstimationNet(nn.Module):
             nn.ReLU(), Dropout(0.1), nn.Linear(64, 7))
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         """In training with dropout on, ``generator`` (on x's device) draws
-        the masks."""
+        the masks, for the global batch's ``rows`` (``Dropout``)."""
         drop = self.training and self.dropout
         if drop and generator is None:
             raise ValueError("training with dropout needs a generator")
         x = self.backbone(x.to(self.dtype))
         for layer in self.pose_head:
             if isinstance(layer, Dropout):
-                x = layer(x, generator) if drop else x
+                x = layer(x, generator, rows) if drop else x
             elif isinstance(layer, nn.Linear):
                 x = _linear(x, layer)
             else:

@@ -45,7 +45,9 @@ def qkv_self_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     """Self-attention of x (B, N, C) with packed qkv/proj weights in
     ``nn.Linear`` layout: ``w_qkv`` (3C, C), whose rows are ordered as
     ``reshape(3, H, D)``, ``b_qkv`` (3C,), ``w_proj`` (C, C), ``b_proj``
-    (C,). Computes in x.dtype. The one (B, N, 3, H, D) projection goes to
+    (C,) or None. ``num_heads`` may be a slice of the heads (tensor
+    parallelism: ``w_qkv`` (3HD, C), ``w_proj`` (C, HD)). Computes in
+    x.dtype. The one (B, N, 3, H, D) projection goes to
     ``flash_attention_qkv`` as is (q, k and v are its strided views, and
     the backward returns one packed gradient), and the attention output
     (B, N, H, D) feeds ``proj`` as is: no transposes or pads. ``quant``
@@ -53,18 +55,18 @@ def qkv_self_attention(x: torch.Tensor, w_qkv: torch.Tensor,
     (H, D) features for ``proj``), per-column weight scales, the product
     cast to x.dtype before its bias of x.dtype is added, as the JAX
     package's fused branch does."""
-    b, n, c = x.shape
+    b, n, _ = x.shape
     if quant:
         qkv = int8_dense(x, w_qkv, b_qkv, cast_first=True)
     else:
         qkv = F.linear(x, w_qkv.to(x.dtype), b_qkv.to(x.dtype))
-    qkv = qkv.view(b, n, 3, num_heads, c // num_heads)
+    qkv = qkv.view(b, n, 3, num_heads, -1)
     if _FORCE_PLAIN:
         out = mha_plain(*qkv.unbind(2))
     else:
         out = flash_attention_qkv(qkv)
     if quant:
-        return int8_dense(out.reshape(b, n, c), w_proj, b_proj,
+        return int8_dense(out.reshape(b, n, -1), w_proj, b_proj,
                           cast_first=True)
-    return F.linear(out.reshape(b, n, c), w_proj.to(x.dtype),
-                    b_proj.to(x.dtype))
+    return F.linear(out.reshape(b, n, -1), w_proj.to(x.dtype),
+                    None if b_proj is None else b_proj.to(x.dtype))

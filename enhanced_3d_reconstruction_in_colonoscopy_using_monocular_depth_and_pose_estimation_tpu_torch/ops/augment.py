@@ -212,11 +212,19 @@ def apply_augment(images: torch.Tensor, params: AugmentParams
 
 
 def augment_batch(images: torch.Tensor, gen: torch.Generator,
-                  cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
+                  cfg: AugmentConfig = AugmentConfig(),
+                  rows: tuple[int, int] | None = None) -> torch.Tensor:
     """images: (B, H, W, 3) in [0, 1] (already resized). Returns the
-    normalised, augmented batch; the draws come from ``gen``."""
-    params = draw_augment_params(gen, images.shape[0],
+    normalised, augmented batch; the draws come from ``gen``. ``rows``
+    (offset, total): the images are rows ``offset ..`` of a global batch
+    of ``total`` (one rank's share); the draws are made for all of them,
+    so each row gets the one-process run's."""
+    offset, total = rows or (0, images.shape[0])
+    params = draw_augment_params(gen, total,
                                  (images.shape[1], images.shape[2]), cfg)
+    if total != images.shape[0]:
+        params = AugmentParams(*(p[offset:offset + images.shape[0]]
+                                 for p in params))
     return apply_augment(images, params)
 
 

@@ -28,13 +28,41 @@ records the term. The step reads the teacher each time it runs, so a
 teacher set after a first step takes effect at the next (the JAX step's
 cache key leaves the teacher out and keeps the step built before).
 
-Not ported (ROADMAP): the device mesh, tensor/sequence parallelism, FSDP,
-pipeline parallelism. Token merging and int8 are for inference.
+The parallel modes run over a ``parallel.mesh.Mesh`` (``device_mesh``),
+one process per card; each rank's batch holds its loader rows:
+
+- data parallelism: the SiLog loss and the metrics are those of the
+  global microbatch (the masked sums are reduced over the data group
+  before the square root, ``losses.silog``), and the gradients, each
+  rank's share of the global loss's, are summed over the data group with
+  one all-reduce per step; a batch the loader replicated (a trailing one
+  the world does not divide) runs whole on every rank and is reduced
+  nowhere;
+- ``fsdp``: FSDP2 ``fully_shard`` over the data group, each encoder
+  block a unit, parameters of at least ``fsdp_min_size`` elements sharded
+  on their largest divisible dim together with their AdamW moments, the
+  others replicated; checkpoints hold the whole tensors;
+- ``tensor_parallel``: the ranks of a model group gather their rows and
+  split each block Megatron's way (``models.dinov2``), each rank holding
+  its slice of the split projections and their AdamW moments; ``seq_parallel``
+  also splits the residual stream's tokens between blocks (a no-op
+  without ``tensor_parallel`` or at ``mesh_model=1``). TP composes with
+  FSDP;
+- ``pipeline_parallel``: the trunk runs as the GPipe or interleaved
+  schedule of ``parallel.pipeline`` over the model group, with the JAX
+  package's guards: exclusive with TP, SP, FSDP, the speed dials and
+  distillation, ``mesh_model == pipeline_parallel``, and a training
+  microbatch must divide ``data x pipe_microbatches`` (an eval batch that
+  does not runs the plain forward).
+
+Token merging and int8 (``token_merge``, ``quant_int8``) are inference
+dials of the model; the task takes them for its guards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping
 
 import numpy as np
@@ -47,6 +75,7 @@ from ..evaluation.depth_metrics import (DEPTH_METRIC_NAMES as METRIC_KEYS,
 from ..losses.silog import silog_loss
 from ..models.convert import drop_unused
 from ..models.depth_anything import DepthAnythingV2, build_depth_model
+from ..parallel import mesh as meshlib
 from .optim import DepthOptimizer, make_depth_optimizer, onecycle_schedule
 
 
@@ -55,15 +84,68 @@ class DepthTrainState:
     model: DepthAnythingV2
     optimizer: DepthOptimizer
     step: int = 0
+    tp: meshlib.TensorParallel | None = None
 
     def state_dict(self) -> dict[str, Any]:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        """Model, optimizer and step in the unsharded layout, whatever
+        the mesh (under FSDP or TP every rank must call it: it
+        gathers)."""
+        return {"model": {k: meshlib.tp_whole(meshlib.full(v), k, self.tp)
+                          for k, v in self.model.state_dict().items()},
+                "optimizer": self._optimizer_state(
+                    self.optimizer.state_dict(),
+                    lambda v, k: meshlib.tp_whole(meshlib.full(v), k,
+                                                  self.tp)),
+                "step": self.step}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Load an unsharded state into this state's layout."""
+        model_sd = {k: meshlib.tp_slice(v, k, self.tp)
+                    for k, v in state["model"].items()}
+        opt_sd = self._optimizer_state(
+            state["optimizer"], lambda v, k: meshlib.tp_slice(v, k, self.tp))
+        sharded = any(hasattr(p, "device_mesh")
+                      for p in self.model.parameters())
+        if sharded:
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions, set_model_state_dict)
+
+            set_model_state_dict(self.model, model_sd,
+                                 options=StateDictOptions(
+                                     full_state_dict=True))
+            self.optimizer.load_state_dict(_shard_optimizer_state(
+                opt_sd, self.optimizer.params))
+        else:
+            self.model.load_state_dict(model_sd)
+            self.optimizer.load_state_dict(opt_sd)
         self.step = int(state["step"])
+
+    def _optimizer_state(self, sd: Mapping[str, Any], fn) -> dict:
+        """``sd`` with ``fn(moment, parameter name)`` applied to each
+        moment of a parameter's shape."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        names = [names[id(p)] for p in self.optimizer.params]
+        return {**sd, "state": {
+            i: {k: fn(v, names[int(i)]) if torch.is_tensor(v) and v.dim()
+                else meshlib.full(v) if torch.is_tensor(v) else v
+                for k, v in s.items()}
+            for i, s in sd["state"].items()}}
+
+
+def _shard_optimizer_state(sd: Mapping[str, Any], params) -> dict:
+    """An unsharded optimizer state dict with each moment laid out as its
+    parameter (a DTensor under FSDP)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    state = {}
+    for i, s in sd["state"].items():
+        p = params[int(i)]
+        state[i] = {
+            k: (distribute_tensor(v.to(p.device), p.device_mesh, p.placements)
+                if hasattr(p, "device_mesh") and torch.is_tensor(v)
+                and v.shape == p.shape else v)
+            for k, v in s.items()}
+    return {**sd, "state": state}
 
 
 class DepthTask:
@@ -88,7 +170,53 @@ class DepthTask:
         device: str | torch.device = "cuda",
         distill_encoder: str | None = None,
         distill_weight: float = 1.0,
+        device_mesh: meshlib.Mesh | None = None,
+        tensor_parallel: bool = False,
+        fsdp: bool = False,
+        fsdp_min_size: int | None = None,
+        token_merge: float = 0.0,
+        quant_int8: bool = False,
+        seq_parallel: bool = False,
+        pipeline_parallel: int = 0,
+        pipe_microbatches: int = 0,
+        pipe_virtual: int = 1,
     ):
+        self.device = resolve_device(device)
+        self.mesh = device_mesh or meshlib.build_mesh(device=self.device)
+        mesh = self.mesh
+        # The JAX package's guards, in its order.
+        self.pipeline_parallel = int(pipeline_parallel)
+        if self.pipeline_parallel > 1:
+            if tensor_parallel or seq_parallel or fsdp:
+                raise ValueError("pipeline_parallel is mutually exclusive "
+                                 "with tensor_parallel/seq_parallel/fsdp")
+            if token_merge > 0 or quant_int8:
+                raise ValueError("pipeline_parallel does not compose with "
+                                 "token_merge/quant_int8")
+            if mesh.model != self.pipeline_parallel:
+                raise ValueError(
+                    f"pipeline_parallel={self.pipeline_parallel} needs "
+                    f"mesh_model={self.pipeline_parallel} (got "
+                    f"{mesh.model})")
+            self.pipe_microbatches = (int(pipe_microbatches)
+                                      or self.pipeline_parallel)
+            self.pipe_virtual = max(1, int(pipe_virtual))
+        if distill_encoder is not None and self.pipeline_parallel > 1:
+            raise ValueError("distill_encoder does not compose with "
+                             "pipeline_parallel")
+        self.tp = (meshlib.TensorParallel(
+            mesh.model_group, mesh.model, mesh.model_index,
+            bool(seq_parallel)) if tensor_parallel and mesh.model > 1
+            else None)
+        self.fsdp = bool(fsdp) and mesh.data > 1
+        self.fsdp_min_size = (meshlib.FSDP_MIN_SIZE if fsdp_min_size is None
+                              else int(fsdp_min_size))
+        refusal = gloo_refusal(self.device, meshlib.backend(), self.fsdp,
+                               self.pipeline_parallel)
+        if refusal:
+            raise RuntimeError(refusal)
+        self._replicated_params: set = set()
+        self._tp_split: list[bool] = []
         self.encoder = encoder
         self.distill_encoder = distill_encoder
         self.distill_weight = float(distill_weight)
@@ -98,7 +226,6 @@ class DepthTask:
         self.policy = policy
         self.grad_checkpoint = grad_checkpoint
         self.grad_accum = int(grad_accum)
-        self.device = resolve_device(device)
         self._sched_args = dict(total_steps=total_steps, pct_start=pct_start,
                                 div_factor=div_factor)
         self._lrs = (encoder_lr, decoder_lr)
@@ -120,10 +247,33 @@ class DepthTask:
         if pretrained_params is not None:
             model.load_state_dict(_merge_params(model.state_dict(),
                                                 pretrained_params))
+        self.prepare(model)
+        if self.fsdp:
+            self._replicated_params = meshlib.apply_fsdp(
+                model, self.mesh, self.fsdp_min_size,
+                units=model.pretrained.blocks)
         model.train()
         optimizer = make_depth_optimizer(
             model, *self._lrs, clip_norm=self._clip_norm, **self._sched_args)
-        return DepthTrainState(model, optimizer, 0)
+        if self.fsdp or self.tp is not None:
+            names = {id(p): n for n, p in model.named_parameters()}
+            self._tp_split = [self.tp is not None and meshlib.tp_split(
+                names[id(p)]) is not None for p in optimizer.params]
+            optimizer.norm_fn = self._sharded_grad_norm
+        if self.fsdp:
+            # The replicated parameters are plain tensors beside the
+            # sharded DTensors; AdamW's multi-tensor path cannot mix them.
+            for group in optimizer.optimizer.param_groups:
+                group["foreach"] = False
+        return DepthTrainState(model, optimizer, 0, self.tp)
+
+    def prepare(self, model: DepthAnythingV2) -> DepthAnythingV2:
+        """Set the task's tensor-parallel plan on ``model``, keeping this
+        rank's slice of each split parameter (a model built outside the
+        task, such as ``test_depth``'s, runs under the mesh after
+        this)."""
+        meshlib.apply_tensor_parallel(model, self.tp)
+        return model
 
     def lr_table(self) -> dict[str, np.ndarray]:
         """Per-step LR of both groups (float32), for logging."""
@@ -150,18 +300,66 @@ class DepthTask:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
+    def _rows(self, batch: Mapping[str, Any], keys, lead: int = 0
+              ) -> tuple[dict[str, torch.Tensor], bool, int]:
+        """This rank's data shard of ``keys`` (its model group's rows,
+        gathered on dim ``lead``), whether the batch is sharded over the
+        ranks, and the global batch."""
+        replicated = bool(batch.get("_replicated", False))
+        out = {k: self._tensor(batch[k]) for k in keys if k in batch}
+        rows = out[keys[0]].shape[lead]
+        sharded = self.mesh.world > 1 and not replicated
+        if sharded and self.mesh.model > 1:
+            out = {k: meshlib.gather_rows(v, self.mesh.model_group, dim=lead)
+                   for k, v in out.items()}
+        return out, sharded, rows * (self.mesh.world if sharded else 1)
+
+    def _reduce(self, sharded: bool):
+        """The masked sums' reduction: over the data group for a sharded
+        batch, none for a replicated one."""
+        if sharded and self.mesh.data_group is not None:
+            return functools.partial(meshlib.global_sum,
+                                     group=self.mesh.data_group)
+        return _identity
+
+    def _forward(self, model: DepthAnythingV2, image: torch.Tensor,
+                 global_b: int, train: bool = False) -> torch.Tensor:
+        """The model's forward, through the pipeline when it is on. A
+        training microbatch the pipeline cannot split raises; an eval
+        batch runs the plain forward (the same numerics)."""
+        if self.pipeline_parallel > 1:
+            divisor = self.mesh.data * self.pipe_microbatches
+            if global_b % divisor == 0:
+                from ..parallel.pipeline import build_pp_depth_forward
+
+                return build_pp_depth_forward(
+                    model, self.mesh, self.pipeline_parallel,
+                    self.pipe_microbatches, self.pipe_virtual)(image)
+            if train:
+                raise ValueError(
+                    f"pipeline_parallel={self.pipeline_parallel}: train "
+                    f"microbatch {global_b} must divide data axis "
+                    f"{self.mesh.data} x pipe_microbatches "
+                    f"{self.pipe_microbatches}")
+        return model(image)
+
     def _loss_and_metrics(self, model: DepthAnythingV2, image: torch.Tensor,
                           depth: torch.Tensor, max_depth: torch.Tensor,
-                          distill: bool = False
+                          distill: bool = False, reduce=None,
+                          global_b: int | None = None, train: bool = False
                           ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """SiLog and the metrics; with ``distill`` and a teacher set, the
-        distillation term too."""
-        pred = model(image)                                  # (b, h, w) f32
+        """SiLog and the metrics (of the global batch, through
+        ``reduce``); with ``distill`` and a teacher set, the distillation
+        term too."""
+        reduce = reduce or _identity
+        pred = self._forward(model, image,
+                             image.shape[0] if global_b is None else global_b,
+                             train)                          # (b, h, w) f32
         gt = depth[..., 0] if depth.dim() == 4 else depth
         maxd = max_depth[:, None, None]
         mask = (gt >= self.min_depth) & (gt <= maxd)
-        loss = silog_loss(pred, gt, mask)
-        metrics = compute_depth_errors(pred.detach(), gt, mask)
+        loss = silog_loss(pred, gt, mask, reduce=reduce)
+        metrics = compute_depth_errors(pred.detach(), gt, mask, reduce=reduce)
         if distill and self.teacher is not None:
             # Soft targets from the frozen teacher, the same SiLog distance
             # as the hard loss, masked to the teacher's range (values below
@@ -169,7 +367,7 @@ class DepthTask:
             with torch.no_grad():
                 t_pred = self.teacher(image)
             t_mask = (t_pred >= self.min_depth) & (t_pred <= maxd)
-            term = silog_loss(pred, t_pred, t_mask)
+            term = silog_loss(pred, t_pred, t_mask, reduce=reduce)
             loss = loss + self.distill_weight * term
             metrics["distill"] = term.detach()
         return loss, metrics
@@ -189,13 +387,16 @@ class DepthTask:
         ``weight`` (A,)). Returns the state and the weighted-mean ``loss``
         and metrics, as scalar tensors on the device (reading them
         syncs)."""
-        image = self._tensor(batch["image"])
-        depth = self._tensor(batch["depth"])
+        rows, sharded, global_b = self._rows(
+            batch, ("image", "depth", "max_depth"), lead=1)
+        image, depth = rows["image"], rows["depth"]
         accum, mb = image.shape[:2]
-        maxd = self._max_depth(batch, (accum, mb))
+        maxd = (rows["max_depth"].float() if "max_depth" in rows else
+                self._max_depth(batch, (accum, mb)))
         weights = (torch.as_tensor(batch["weight"]).tolist()
                    if "weight" in batch else [1.0] * accum)
         inv_a = 1.0 / max(sum(weights), 1e-6)
+        reduce = self._reduce(sharded)
 
         model, optimizer = state.model, state.optimizer
         model.train()
@@ -208,18 +409,82 @@ class DepthTask:
         for a, w in enumerate(weights):
             if w == 0.0:
                 continue
-            loss, metrics = self._loss_and_metrics(model, image[a], depth[a],
-                                                   maxd[a], distill=True)
+            loss, metrics = self._loss_and_metrics(
+                model, image[a], depth[a], maxd[a], distill=True,
+                reduce=reduce, global_b=global_b, train=True)
             # Gradients of the weighted mean: each chunk's backward adds
             # w * inv_a times its gradient into .grad.
             (loss * (w * inv_a)).backward()
             loss_sum = loss_sum + loss.detach() * w
             met_sum = {k: met_sum[k] + metrics[k] * w for k in keys}
+        self._sync_grads(model, sharded)
         optimizer.step(state.step)
         state.step += 1
         out = {k: v * inv_a for k, v in met_sum.items()}
         out["loss"] = loss_sum * inv_a
         return state, out
+
+    def _sync_grads(self, model: DepthAnythingV2, sharded: bool) -> None:
+        """Sum each rank's share of the gradient: over the data group for
+        a sharded batch (FSDP's reduce-scatter already did its own
+        parameters), and over the model group for what the model group
+        split: every parameter under the pipeline (each stage ran its own
+        blocks and its slot of the head); under sequence parallelism the
+        encoder's replicated parameters but its final norm (each rank ran
+        its slot of the tokens). Tensor parallelism's split projections
+        hold whole gradients of this rank's slices, its replicated
+        parameters the same gradient on every rank."""
+        mesh = self.mesh
+        if mesh.world == 1:
+            return
+        # A parameter this rank did not use (a pipeline stage's embedding
+        # off stage 0) has no gradient: its share is zero, and every rank
+        # must send the same tensors.
+        params = list(model.named_parameters())
+        for _, p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if sharded and mesh.data_group is not None:
+            meshlib.sum_grads(
+                [p.grad for _, p in params
+                 if not self.fsdp or p in self._replicated_params],
+                mesh.data_group)
+            if self.fsdp:
+                # FSDP's reduce-scatter averages over the data group (the
+                # right reduction for a replicated batch); a sharded
+                # batch's shares are summed.
+                for _, p in params:
+                    if p not in self._replicated_params:
+                        meshlib.local(p.grad).mul_(mesh.data)
+        if mesh.model_group is None:
+            return
+        if self.pipeline_parallel > 1:
+            split = params
+        elif self.tp is not None and self.tp.seq_parallel:
+            split = [(n, p) for n, p in params
+                     if n.startswith("pretrained.")
+                     and not n.startswith("pretrained.norm.")
+                     and meshlib.tp_split(n) is None]
+        else:
+            return
+        meshlib.sum_grads([meshlib.local(p.grad) for _, p in split],
+                          mesh.model_group)
+
+    def _sharded_grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm under FSDP and TP: each gradient's
+        squares summed over the groups its parameter is sharded on (FSDP's
+        over the data group, TP's split projections over the model group),
+        a replicated one's counted once."""
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sq = [zero] * 4        # replicated, FSDP, TP, FSDP and TP
+        for g, split in zip(grads, self._tp_split):
+            k = int(hasattr(g, "to_local")) + 2 * int(split)
+            sq[k] = sq[k] + meshlib.local(g).float().square().sum()
+        on_data = torch.stack([sq[1], sq[3]])
+        meshlib.sum_grads([on_data], self.mesh.data_group)
+        on_model = torch.stack([sq[2], on_data[1]])
+        meshlib.sum_grads([on_model], self.mesh.model_group)
+        return (sq[0] + on_data[0] + on_model.sum()).sqrt()
 
     # ------------------------------------------------------------- eval step
 
@@ -228,10 +493,14 @@ class DepthTask:
                   ) -> dict[str, torch.Tensor]:
         """``batch``: ``image`` (B, H, W, 3), ``depth`` (B, H, W[, 1]),
         optional ``max_depth`` (B,). Returns scalar loss and metrics."""
-        image = self._tensor(batch["image"])
+        rows, sharded, global_b = self._rows(batch,
+                                             ("image", "depth", "max_depth"))
+        image = rows["image"]
+        maxd = (rows["max_depth"].float() if "max_depth" in rows else
+                self._max_depth(batch, (image.shape[0],)))
         loss, metrics = self._loss_and_metrics(
-            model, image, self._tensor(batch["depth"]),
-            self._max_depth(batch, (image.shape[0],)))
+            model, image, rows["depth"], maxd,
+            reduce=self._reduce(sharded), global_b=global_b)
         metrics["loss"] = loss
         return metrics
 
@@ -243,23 +512,27 @@ class DepthTask:
         forward over a combined batch (``source`` 0 or 1, ``max_depth``
         (B,)). C3VD l1/rmse are scaled x10 back to mm (training runs in
         the /10 cm convention); ``<source>/count`` counts its samples."""
-        pred = model(self._tensor(batch["image"]))
-        depth = self._tensor(batch["depth"])
+        rows, sharded, global_b = self._rows(
+            batch, ("image", "depth", "max_depth", "source"))
+        reduce = self._reduce(sharded)
+        pred = self._forward(model, rows["image"], global_b)
+        depth = rows["depth"]
         gt = depth[..., 0] if depth.dim() == 4 else depth
-        maxd = self._tensor(batch["max_depth"]).float()[:, None, None]
+        maxd = rows["max_depth"].float()[:, None, None]
         mask = (gt >= self.min_depth) & (gt <= maxd)
-        source = self._tensor(batch["source"])
-        out = {"loss": silog_loss(pred, gt, mask)}
-        out.update(compute_depth_errors(pred, gt, mask))
+        source = rows["source"]
+        out = {"loss": silog_loss(pred, gt, mask, reduce=reduce)}
+        out.update(compute_depth_errors(pred, gt, mask, reduce=reduce))
         for name, sid in (("SimCol", 0), ("C3VD", 1)):
             metrics = compute_depth_errors(
-                pred, gt, mask & (source[:, None, None] == sid))
+                pred, gt, mask & (source[:, None, None] == sid),
+                reduce=reduce)
             scale = 10.0 if sid == 1 else 1.0
             out[f"{name}/l1"] = metrics["l1"] * scale
             out[f"{name}/rmse"] = metrics["rmse"] * scale
             out[f"{name}/abs_rel"] = metrics["abs_rel"]
             out[f"{name}/d1"] = metrics["d1"]
-            out[f"{name}/count"] = torch.sum(source == sid).float()
+            out[f"{name}/count"] = reduce(torch.sum(source == sid).float())
         return out
 
     @torch.no_grad()
@@ -269,12 +542,17 @@ class DepthTask:
         """Per-sample loss and metrics, a dict of (B,) tensors, for the
         per-procedure collectors of ``cli/test_depth.py``: true per-sample
         values, as in the JAX package (the reference appends the batch's
-        metric once per sample). ``batch`` as for ``eval_step``."""
-        image = self._tensor(batch["image"])
-        pred = model(image)
-        depth = self._tensor(batch["depth"])
+        metric once per sample). ``batch`` as for ``eval_step``; under a
+        mesh the rows are this rank's data shard (its model group's
+        rows)."""
+        rows, _, global_b = self._rows(batch,
+                                       ("image", "depth", "max_depth"))
+        image = rows["image"]
+        pred = self._forward(model, image, global_b)
+        depth = rows["depth"]
         gt = depth[..., 0] if depth.dim() == 4 else depth
-        maxd = self._max_depth(batch, (image.shape[0],))
+        maxd = (rows["max_depth"].float() if "max_depth" in rows else
+                self._max_depth(batch, (image.shape[0],)))
         rows = []
         for pred_i, gt_i, maxd_i in zip(pred, gt, maxd):
             mask = (gt_i >= self.min_depth) & (gt_i <= maxd_i)
@@ -282,6 +560,28 @@ class DepthTask:
             row["loss"] = silog_loss(pred_i, gt_i, mask)
             rows.append(row)
         return {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
+
+
+def gloo_refusal(device: torch.device, backend: str | None, fsdp: bool,
+                 pipeline_parallel: int) -> str | None:
+    """Why a mode cannot run on ``device`` over ``backend``, else None.
+    gloo moves CUDA tensors only by all-reduce, broadcast and barrier:
+    FSDP's all-gather and reduce-scatter crash the process, and the
+    pipeline's send/recv fail, on an H100."""
+    if device.type != "cuda" or backend != "gloo":
+        return None
+    for on, what in ((fsdp, "fsdp (all-gather, reduce-scatter)"),
+                     (pipeline_parallel > 1,
+                      "pipeline_parallel (send/recv)")):
+        if on:
+            return (f"{what} needs collectives of CUDA tensors that the "
+                    "gloo backend does not have; run one process per card "
+                    "on nccl")
+    return None
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def _merge_params(base: Mapping[str, torch.Tensor],

@@ -13,7 +13,23 @@ patience 20, per-step LR logging). The datamodule is any object with
 floats already at ``size``) and ``depth`` (uint16, or [0, 1] floats), and
 ``source`` for combined batches.
 
-Multi-host input assembly and the preemption guard are not ported yet.
+Multi-process runs (the task's ``mesh``): the loaders shard each global
+batch over the ranks (``rank``, ``world``); a batch the world does not
+divide comes whole to every rank (``_replicated``), and an accumulation
+group with one such batch steps on the replicated path. The augmentation
+draws are the global batch's, so every rank's rows get the one-process
+run's. The steps' metrics are already global (``DepthTask``), so the
+epoch banks and the validation means agree on every rank. Only rank 0
+logs and writes checkpoints, in the unsharded layout, and the ranks meet
+at a barrier after each save.
+
+SIGTERM and SIGINT (``core.preempt.PreemptionGuard``) stop a fit at the
+next step boundary: it saves ``latest/`` (``val_loss`` 1e30, so never a
+best-k slot, with the early-stopping state and ``preempted`` 1) and
+returns, and ``resume=True`` continues from that step. Under more than
+one rank the ranks agree on the flag at the host-sync boundaries (log and
+validation steps) with a MAX all-reduce, so a signal that reaches one rank
+stops all of them at the same step.
 """
 
 from __future__ import annotations
@@ -25,9 +41,11 @@ import torch
 
 from ..core.checkpoint import CheckpointManager, EarlyStopping
 from ..core.debug import StepTimer
-from ..core.logging import MetricLogger
+from ..core.logging import MetricLogger, NullLogger
 from ..core.metrics import MetricBank
+from ..core.preempt import PreemptionGuard
 from ..data.preprocess import DevicePreprocessor
+from ..parallel.mesh import Mesh
 from .depth_task import METRIC_KEYS, DepthTask, DepthTrainState
 from .pose_task import PoseTask, PoseTrainState
 
@@ -39,6 +57,63 @@ def _restore_stopper(stopper: EarlyStopping, ckpt: CheckpointManager) -> None:
     if m and "es_bad_count" in m:
         stopper.best = float(m["es_best"])
         stopper.bad_count = int(m["es_bad_count"])
+
+
+class _Saved:
+    """A state dict taken on every rank, for rank 0 to write."""
+
+    def __init__(self, state_dict: dict):
+        self._sd = state_dict
+
+    def state_dict(self) -> dict:
+        return self._sd
+
+
+def _save(ckpt: CheckpointManager, mesh: Mesh, step: int, state,
+          metrics: dict[str, float]) -> None:
+    """Save on rank 0 (every rank gathers the state: under FSDP that is
+    collective), then meet at a barrier."""
+    sd = state.state_dict()
+    if mesh.rank == 0:
+        ckpt.save(step, _Saved(sd), metrics)
+    mesh.barrier()
+
+
+def _preempt_agreed(guard: PreemptionGuard, mesh: Mesh,
+                    host_sync: bool = True) -> bool:
+    """Whether to stop for a signal. One rank: its own flag, every step.
+    More: the save is collective and a signal may reach one rank a step
+    before another, so the ranks agree (stop iff any saw it) with a MAX
+    all-reduce, only at the host-sync boundaries (``host_sync``, the same
+    on every rank); between them a flag waits for the next one."""
+    if mesh.world == 1:
+        return guard.requested
+    if not host_sync:
+        return False
+    return mesh.flag_any(guard.requested)
+
+
+def _handle_preemption(ckpt: CheckpointManager, mesh: Mesh, step: int,
+                       state, stopper: EarlyStopping) -> None:
+    """Save a final mid-run checkpoint after SIGTERM/SIGINT: val_loss
+    1e30, so it never displaces a best-k slot (it lands in ``latest/``),
+    with the early-stopping state, so a resumed run keeps its patience
+    counter. Nothing is written when the step is already saved."""
+    if ckpt.latest_step() == int(step):
+        if mesh.rank == 0:
+            print(f"[preempt] signal received at step {step} "
+                  "(already checkpointed); exiting cleanly")
+        return
+    _save(ckpt, mesh, step, state, {
+        "val_loss": 1e30,
+        "es_best": (float(stopper.best) if stopper.best is not None
+                    else 1e30),
+        "es_bad_count": float(stopper.bad_count),
+        "preempted": 1.0,
+    })
+    if mesh.rank == 0:
+        print(f"[preempt] signal received - saved latest/ at step {step}; "
+              "restart with trainer.resume=true to continue")
 
 
 def _group_accum(loader: Iterable[dict], accum: int):
@@ -79,9 +154,11 @@ def fit_depth(
     if getattr(datamodule, "train_dataset", None) is None:
         datamodule.setup("fit")
     size = datamodule.size
+    mesh = task.mesh
     pre = DevicePreprocessor(size=size, device=task.device)
     own_logger = logger is None
-    logger = logger or MetricLogger(log_dir)
+    logger = logger or (MetricLogger(log_dir) if mesh.rank == 0
+                        else NullLogger())
     ckpt = CheckpointManager(ckpt_dir, max_to_keep=1)
     stopper = EarlyStopping(patience=patience)
 
@@ -89,6 +166,7 @@ def fit_depth(
     if resume and ckpt.restore_latest(state) is not None:
         _restore_stopper(stopper, ckpt)
         print(f"[fit_depth] resumed from step {state.step}")
+    mesh.barrier()
     gen = torch.Generator().manual_seed(seed + 1)
     lr_table = task.lr_table()
     timer = StepTimer()
@@ -103,73 +181,94 @@ def fit_depth(
     bank_keys = ("loss",) + METRIC_KEYS
 
     stop = False
-    for epoch in range(max_epochs):
-        if stop:
-            break
-        bank = MetricBank.zeros(bank_keys, task.device)
-        t_epoch = time.time()
-        for group in _group_accum(iter(train_loader), accum):
-            n_real = len(group)
-            prepped = [pre(b, train=True, generator=gen,
-                           max_depths=max_depths) for b in group]
-            # A trailing partial group is padded to ``accum`` chunks with
-            # zero weights; the task skips them.
-            prepped += [prepped[-1]] * (accum - n_real)
-            keys = ("image", "depth") + (("max_depth",) if combined else ())
-            batch = {k: torch.stack([p[k] for p in prepped]) for k in keys}
-            batch["weight"] = torch.tensor(
-                [1.0] * n_real + [0.0] * (accum - n_real))
-            with timer.step():
-                state, metrics = task.train_step(state, batch)
-                bank = MetricBank.update(bank, metrics)
-                step += 1
-                if (step % log_every == 0 or step % val_every == 0
-                        or (max_steps and step >= max_steps)):
-                    lr_idx = min(step - 1, len(lr_table["encoder"]) - 1)
-                    logger.log(
-                        {"train_loss": metrics["loss"],
-                         **{f"Train/train_{k}": metrics[k]
-                            for k in METRIC_KEYS},
-                         # the distillation term, when a teacher is set
-                         **{f"Train/train_{k}": metrics[k]
-                            for k in ("distill",) if k in metrics},
-                         "lr/encoder": float(lr_table["encoder"][lr_idx]),
-                         "lr/decoder": float(lr_table["decoder"][lr_idx]),
-                         "epoch": epoch}, step=step)
+    with PreemptionGuard() as guard:
+        for epoch in range(max_epochs):
+            if stop:
+                break
+            bank = MetricBank.zeros(bank_keys, task.device)
+            t_epoch = time.time()
+            for group in _group_accum(iter(train_loader), accum):
+                n_real = len(group)
+                # One batch the loader could not shard over the ranks
+                # puts the whole group on the replicated path.
+                replicated = any(bool(b.pop("_replicated", False))
+                                 for b in group)
+                prepped = [pre(b, train=True, generator=gen,
+                               max_depths=max_depths,
+                               rows=mesh.loader_rows(len(b["image"]),
+                                                     replicated))
+                           for b in group]
+                # A trailing partial group is padded to ``accum`` chunks
+                # with zero weights; the task skips them.
+                prepped += [prepped[-1]] * (accum - n_real)
+                keys = ("image", "depth") + (("max_depth",) if combined
+                                             else ())
+                batch = {k: torch.stack([p[k] for p in prepped])
+                         for k in keys}
+                batch["weight"] = torch.tensor(
+                    [1.0] * n_real + [0.0] * (accum - n_real))
+                batch["_replicated"] = replicated
+                with timer.step():
+                    state, metrics = task.train_step(state, batch)
+                    bank = MetricBank.update(bank, metrics)
+                    step += 1
+                    boundary = bool(step % log_every == 0
+                                    or step % val_every == 0
+                                    or (max_steps and step >= max_steps))
+                    if boundary:
+                        lr_idx = min(step - 1, len(lr_table["encoder"]) - 1)
+                        logger.log(
+                            {"train_loss": metrics["loss"],
+                             **{f"Train/train_{k}": metrics[k]
+                                for k in METRIC_KEYS},
+                             # the distillation term, when a teacher is set
+                             **{f"Train/train_{k}": metrics[k]
+                                for k in ("distill",) if k in metrics},
+                             "lr/encoder":
+                                 float(lr_table["encoder"][lr_idx]),
+                             "lr/decoder":
+                                 float(lr_table["decoder"][lr_idx]),
+                             "epoch": epoch}, step=step)
 
-            if step % val_every == 0 or (max_steps and step >= max_steps):
-                val_metrics = evaluate_depth(task, state.model,
-                                             datamodule.val_loader(), pre,
-                                             max_depths=max_depths)
-                logger.log({"val_loss": val_metrics["loss"],
-                            **{f"Val/val_{k}": v
-                               for k, v in val_metrics.items()
-                               if k != "loss"}},
-                           step=step, force_stdout=True)
-                # Stopper first, so its updated state rides the checkpoint.
-                should_stop = stopper.update(float(val_metrics["loss"]))
-                ckpt.save(step, state,
+                if step % val_every == 0 or (max_steps and step >= max_steps):
+                    val_metrics = evaluate_depth(
+                        task, state.model, datamodule.val_loader(), pre,
+                        max_depths=max_depths)
+                    logger.log({"val_loss": val_metrics["loss"],
+                                **{f"Val/val_{k}": v
+                                   for k, v in val_metrics.items()
+                                   if k != "loss"}},
+                               step=step, force_stdout=True)
+                    # Stopper first, so its updated state rides the
+                    # checkpoint.
+                    should_stop = stopper.update(float(val_metrics["loss"]))
+                    _save(ckpt, mesh, step, state,
                           {"val_loss": float(val_metrics["loss"]),
                            "es_best": float(stopper.best),
                            "es_bad_count": float(stopper.bad_count)})
-                if should_stop:
-                    print(f"[early-stop] val_loss plateaued "
-                          f"(best {stopper.best:.5f})")
+                    if should_stop:
+                        print(f"[early-stop] val_loss plateaued "
+                              f"(best {stopper.best:.5f})")
+                        stop = True
+                        break
+                if _preempt_agreed(guard, mesh, host_sync=boundary):
+                    _handle_preemption(ckpt, mesh, step, state, stopper)
                     stop = True
                     break
-            if max_steps and step >= max_steps:
-                stop = True
-                break
-        summary = timer.summary()
-        print(f"[epoch {epoch}] {time.time() - t_epoch:.1f}s "
-              f"({summary.get('steps_per_s', 0):.2f} steps/s)")
-        if float(bank["loss"].count) > 0:
-            logger.log({f"Train/epoch_{k}": v
-                        for k, v in MetricBank.compute(bank).items()},
-                       step=state.step)
-        if summary:
-            logger.log({f"perf/{k}": v for k, v in summary.items()},
-                       step=state.step)
+                if max_steps and step >= max_steps:
+                    stop = True
+                    break
+            summary = timer.summary()
+            print(f"[epoch {epoch}] {time.time() - t_epoch:.1f}s "
+                  f"({summary.get('steps_per_s', 0):.2f} steps/s)")
+            if float(bank["loss"].count) > 0:
+                logger.log({f"Train/epoch_{k}": v
+                            for k, v in MetricBank.compute(bank).items()},
+                           step=state.step)
+            if summary:
+                logger.log({f"perf/{k}": v for k, v in summary.items()},
+                           step=state.step)
+    mesh.barrier()
     if own_logger:
         logger.close()
     return state
@@ -187,7 +286,9 @@ def evaluate_depth(task: DepthTask, model, loader, pre: DevicePreprocessor,
     src_sums: dict[str, float] = {}
     src_weight: dict[str, float] = {}
     for batch in loader:
+        replicated = bool(batch.pop("_replicated", False))
         prepped = pre(batch, train=False, max_depths=max_depths)
+        prepped["_replicated"] = replicated
         if "source" in prepped:
             per_src = {k: float(v) for k, v in
                        task.eval_step_combined(model, prepped).items()}
@@ -247,8 +348,10 @@ def fit_pose(
     ``target`` batches."""
     if getattr(datamodule, "train_dataset", None) is None:
         datamodule.setup("fit")
+    mesh = task.mesh
     own_logger = logger is None
-    logger = logger or MetricLogger(log_dir)
+    logger = logger or (MetricLogger(log_dir) if mesh.rank == 0
+                        else NullLogger())
     ckpt = CheckpointManager(ckpt_dir, max_to_keep=1)
     stopper = EarlyStopping(patience=patience)
 
@@ -256,6 +359,7 @@ def fit_pose(
     if resume and ckpt.restore_latest(state) is not None:
         _restore_stopper(stopper, ckpt)
         print(f"[fit_pose] resumed from step {state.step}")
+    mesh.barrier()
     lr_table = task.lr_table()
     timer = StepTimer()
     step = state.step
@@ -264,54 +368,74 @@ def fit_pose(
     train_loader = datamodule.train_loader()
 
     stop = False
-    for epoch in range(max_epochs):
-        if stop:
-            break
-        for batch in train_loader:
-            with timer.step():
-                state, metrics = task.train_step(state, batch)
-                step += 1
-                if step % log_every == 0 or (max_steps and step >= max_steps):
-                    logger.log(
-                        {"train_loss": metrics["loss"],
-                         **{f"Train/train_{k}": metrics[k]
-                            for k in ("ate", "rte", "rote")},
-                         "lr": float(lr_table[min(step - 1,
-                                                  len(lr_table) - 1)]),
-                         "epoch": epoch}, step=step)
-            if max_steps and step >= max_steps:
-                stop = True
+    with PreemptionGuard() as guard:
+        for epoch in range(max_epochs):
+            if stop:
                 break
-
-        val_sums: dict[str, float] = {}
-        val_counts: dict[str, int] = {}
-        preds, gts = [], []
-        for batch in datamodule.val_loader():
-            metrics, pred = task.eval_step(state, batch)
-            preds.append(pred)
-            gts.append(torch.as_tensor(batch["target"]))
-            _accumulate_pose_val(val_sums, val_counts, metrics,
-                                 len(batch["target"]))
-        val = {k: v / max(val_counts.get(k, 0), 1)
-               for k, v in val_sums.items()}
-        if preds:
-            traj = task.trajectory_metrics(torch.cat(preds), torch.cat(gts))
-            val.update({f"traj_{k}": float(v) for k, v in traj.items()})
-        val_loss = float(val.get("loss", 1e9))
-        logger.log({"val_loss": val.get("loss", float("nan")),
-                    **{f"Val/val_{k}": v for k, v in val.items()
-                       if k != "loss"}}, step=state.step, force_stdout=True)
-        should_stop = stopper.update(val_loss)
-        ckpt.save(state.step, state,
-                  {"val_loss": val_loss, "es_best": float(stopper.best),
-                   "es_bad_count": float(stopper.bad_count)})
-        if should_stop:
-            print(f"[early-stop] val_loss plateaued (best {stopper.best:.5f})")
-            break
+            for batch in train_loader:
+                with timer.step():
+                    state, metrics = task.train_step(state, batch)
+                    step += 1
+                    boundary = bool(step % log_every == 0
+                                    or (max_steps and step >= max_steps))
+                    if boundary:
+                        logger.log(
+                            {"train_loss": metrics["loss"],
+                             **{f"Train/train_{k}": metrics[k]
+                                for k in ("ate", "rte", "rote")},
+                             "lr": float(lr_table[min(step - 1,
+                                                      len(lr_table) - 1)]),
+                             "epoch": epoch}, step=step)
+                if _preempt_agreed(guard, mesh, host_sync=boundary):
+                    _handle_preemption(ckpt, mesh, step, state, stopper)
+                    stop = True
+                    break
+                if max_steps and step >= max_steps:
+                    stop = True
+                    break
+            if _preempt_agreed(guard, mesh):
+                break  # already saved; no epoch-end validation
+            if _validate_pose(task, state, datamodule, logger, ckpt, mesh,
+                              stopper):
+                break
     summary = timer.summary()
     if summary:
         logger.log({f"perf/{k}": v for k, v in summary.items()},
                    step=state.step)
+    mesh.barrier()
     if own_logger:
         logger.close()
     return state
+
+
+def _validate_pose(task: PoseTask, state: PoseTrainState, datamodule,
+                   logger, ckpt: CheckpointManager, mesh: Mesh,
+                   stopper: EarlyStopping) -> bool:
+    """Epoch-end validation with whole-trajectory metrics, logged and
+    checkpointed; returns whether early stopping fired. The validation
+    loader is not sharded: every rank validates the whole set."""
+    val_sums: dict[str, float] = {}
+    val_counts: dict[str, int] = {}
+    preds, gts = [], []
+    for batch in datamodule.val_loader():
+        metrics, pred = task.eval_step(state, batch)
+        preds.append(pred)
+        gts.append(torch.as_tensor(batch["target"]))
+        _accumulate_pose_val(val_sums, val_counts, metrics,
+                             len(batch["target"]))
+    val = {k: v / max(val_counts.get(k, 0), 1)
+           for k, v in val_sums.items()}
+    if preds:
+        traj = task.trajectory_metrics(torch.cat(preds), torch.cat(gts))
+        val.update({f"traj_{k}": float(v) for k, v in traj.items()})
+    val_loss = float(val.get("loss", 1e9))
+    logger.log({"val_loss": val.get("loss", float("nan")),
+                **{f"Val/val_{k}": v for k, v in val.items()
+                   if k != "loss"}}, step=state.step, force_stdout=True)
+    should_stop = stopper.update(val_loss)
+    _save(ckpt, mesh, state.step, state,
+          {"val_loss": val_loss, "es_best": float(stopper.best),
+           "es_bad_count": float(stopper.bad_count)})
+    if should_stop:
+        print(f"[early-stop] val_loss plateaued (best {stopper.best:.5f})")
+    return should_stop

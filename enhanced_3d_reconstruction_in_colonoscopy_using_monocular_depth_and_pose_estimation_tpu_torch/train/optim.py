@@ -99,6 +99,11 @@ class ClippedAdamW:
         self.optimizer = torch.optim.AdamW(
             [{"params": params, "lr": sched(0)} for params, sched in groups],
             betas=(b1, 0.999), eps=1e-8, weight_decay=weight_decay)
+        # The global gradient norm of gradients that are sharded over
+        # ranks (FSDP): a function of the list of gradients, set by the
+        # task; None takes the norm of the tensors as they are.
+        self.norm_fn: Callable[[list[torch.Tensor]], torch.Tensor] | None \
+            = None
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -111,12 +116,16 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if self.norm_fn is not None:
+            norm = self.norm_fn(grads)
+        else:
+            norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
         for g in grads:
-            g.mul_(factor)
+            # a DTensor's local shard (FSDP), else the tensor
+            (g.to_local() if hasattr(g, "to_local") else g).mul_(factor)
         for group, schedule in zip(self.optimizer.param_groups,
                                    self.schedules):
             group["lr"] = schedule(count)

@@ -17,7 +17,12 @@ regressor (the JAX package's ``train/pose_task.py``, the reference's
 The state is a ``PoseTrainState`` (model, optimizer, dropout generator,
 step); the step updates it in place and returns it.
 
-Not ported (ROADMAP): the device mesh and data parallelism.
+Data parallelism (``device_mesh``, the JAX package's batch sharded over
+the data axis): each rank steps on its loader rows; BatchNorm normalises
+with the global batch's statistics (``models.resnet_pose``), the dropout
+masks are the global batch's rows, the gradients are averaged over the
+data group, and the loss and the ATE/RTE/ROTE metrics are those of the
+whole batch. A batch the loader replicated runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,7 +38,9 @@ from ..core.device import resolve_device
 from ..core.dtypes import POLICY_F32, DtypePolicy
 from ..evaluation.pose_metrics import compute_pose_errors, evaluate_trajectory
 from ..losses.pose_loss import pose_loss
-from ..models.resnet_pose import PoseEstimationNet, build_pose_model
+from ..models.resnet_pose import (PoseEstimationNet, build_pose_model,
+                                  set_sync_group)
+from ..parallel import mesh as meshlib
 from .optim import ClippedAdamW, make_pose_optimizer, onecycle_schedule
 
 
@@ -75,12 +82,14 @@ class PoseTask:
         cycle_momentum: bool = False,
         dropout: bool = True,
         device: str | torch.device = "cuda",
+        device_mesh: meshlib.Mesh | None = None,
     ):
+        self.device = resolve_device(device)
+        self.mesh = device_mesh or meshlib.build_mesh(device=self.device)
         self.in_channels = in_channels
         self.beta = float(beta)
         self.policy = policy
         self.dropout = dropout
-        self.device = resolve_device(device)
         self._lr = lr
         self._opt_args = dict(total_steps=total_steps, pct_start=pct_start,
                               div_factor=div_factor,
@@ -141,18 +150,40 @@ class PoseTask:
         """One optimizer step on ``input`` (B, 8, H, W) and ``target``
         (B, 7). Returns the state and scalar ``loss``, ``ate``, ``rte`` and
         ``rote`` tensors on the device (reading them syncs)."""
+        mesh = self.mesh
         image = self._tensor(batch["input"])
         target = self._tensor(batch["target"]).float()
+        sharded = mesh.world > 1 and not batch.get("_replicated", False)
+        if sharded and mesh.model > 1:
+            image = meshlib.gather_rows(image, mesh.model_group)
+            target = meshlib.gather_rows(target, mesh.model_group)
+        group = mesh.data_group if sharded else None
+        rows = mesh.data_rows(len(batch["input"]), not sharded)
         model, optimizer = state.model, state.optimizer
         model.train()
+        set_sync_group(model, group)
         optimizer.zero_grad()
         with self._precision():
-            pred = model(image, state.generator)
+            pred = model(image, state.generator, rows)
             loss = pose_loss(pred, target, beta=self.beta)
             loss.backward()
+            if group is not None:
+                # The global loss is the mean of the ranks' equal-sized
+                # batch means: average the gradients.
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None]
+                meshlib.sum_grads(grads, group)
+                for g in grads:
+                    g.div_(mesh.data)
             optimizer.step(state.step)
+        set_sync_group(model, None)
         state.step += 1
-        metrics = compute_pose_errors(pred.detach(), target)
+        pred, target = pred.detach(), target
+        if group is not None:
+            pred = meshlib.gather_rows(pred, group)
+            target = meshlib.gather_rows(target, group)
+            loss = meshlib.global_sum(loss.detach(), group) / mesh.data
+        metrics = compute_pose_errors(pred, target)
         metrics["loss"] = loss.detach()
         return state, metrics
 

@@ -213,20 +213,55 @@ def test_train_then_test_on_its_checkpoint(simcol, tmp_path, monkeypatch):
 ])
 def test_unported_knobs_exit_naming_their_item(simcol, override, item,
                                                tmp_path, monkeypatch):
-    """The parallel knobs exit naming their item. Distillation and the NaN
-    checks, refused until the port had them, are no longer listed (their
-    runs: ``tests/test_torch_distill.py``, ``tests/test_torch_debug.py``)."""
+    """Every knob that was refused until the port had it now does in one
+    process what it does in the JAX package (the item names what was
+    ported): a mesh larger than the world raises the JAX package's message
+    for one device; ``pipeline_parallel=2`` its guard at ``mesh_model=1``;
+    ``distributed=true`` without torchrun's environment names the missing
+    variables; TP, SP and FSDP on one rank are the plain path, which
+    trains. Distillation and the NaN checks are no longer listed (their
+    runs: ``tests/test_torch_distill.py``, ``tests/test_torch_debug.py``);
+    none of the knobs is refused."""
+    from e3d_tpu.parallel import mesh as jmesh
+
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("E3D_CONFIG_ROOT", CONFIG_ROOT)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "E3D_DIST_INIT"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = cfglib.compose(CONFIG_ROOT, "default",
+                         _overrides(simcol) + [override])
+    assert ttrain.unported_knobs(cfg) == []
     if item == "Distillation and NaN checks":
-        cfg = cfglib.compose(CONFIG_ROOT, "default",
-                             _overrides(simcol) + [override])
         assert cfg.trainer.get(override.split("=")[0].split(".")[-1])
-        assert ttrain.unported_knobs(cfg) == []
         return
-    with pytest.raises(SystemExit, match=f'ROADMAP, "{item}"'):
-        ttrain.main(_overrides(simcol) + ["--device", "cpu", override])
-    assert not (tmp_path / "configs").exists()
+    argv = _overrides(simcol) + ["--device", "cpu", override,
+                                 "++trainer.max_steps=1",
+                                 "trainer.max_epochs=1"]
+    name = override.split("=")[0].split(".")[-1]
+    if name in ("mesh_model", "mesh_data"):
+        spec = dict(mesh_model=(-1, 2), mesh_data=(4, 1))[name]
+        with pytest.raises(ValueError) as want:
+            jmesh.build_mesh(jmesh.MeshSpec(*spec), devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as got:
+            ttrain.main(argv)
+        assert str(got.value) == str(want.value) == (
+            f"mesh {max(spec[0], 0)}x{spec[1]} != 1 devices")
+    elif name == "pipeline_parallel":
+        with pytest.raises(ValueError, match=r"pipeline_parallel=2 needs "
+                           r"mesh_model=2 \(got 1\)"):
+            ttrain.main(argv)
+    elif name == "distributed":
+        with pytest.raises(RuntimeError, match="missing RANK, WORLD_SIZE, "
+                           "LOCAL_RANK, MASTER_ADDR, MASTER_PORT"):
+            ttrain.main(argv)
+    else:
+        out = ttrain.main(argv)
+        assert list((tmp_path / out["ckpt_dir"]).glob("*/state.pt"))
+    # The mesh and the process group come before the run directory is
+    # written, the task's guards after it (as in the JAX package).
+    assert (tmp_path / "configs").exists() == (
+        name not in ("mesh_model", "mesh_data", "distributed"))
 
 
 def test_pose_and_orbax_raise_naming_their_item(simcol, tmp_path,
@@ -246,5 +281,5 @@ def test_pose_and_orbax_raise_naming_their_item(simcol, tmp_path,
     JaxCheckpointManager(str(orbax)).save(
         1, {"w": np.zeros(2, np.float32)}, {"val_loss": 1.0})
     monkeypatch.setenv("CHECKPOINT_PATH", str(orbax))
-    with pytest.raises(ValueError, match='ROADMAP, "Tools"'):
+    with pytest.raises(ValueError, match="orbax_to_torch.py"):
         ttest.main(_overrides(simcol) + ["--device", "cpu"])

@@ -23,7 +23,8 @@ MODULES = (
     "cli.train_depth", "cli.train_pose", "cli.video_depth",
     "cli.video_to_images",
     "core.checkpoint", "core.config", "core.debug", "core.device",
-    "core.dtypes", "core.logging", "core.metrics", "core.yamlsubset",
+    "core.dtypes", "core.logging", "core.metrics", "core.preempt",
+    "core.yamlsubset",
     "data.c3vd", "data.combined", "data.io", "data.loader", "data.native",
     "data.pose", "data.preprocess", "data.simcol", "data.synthetic",
     "evaluation.depth_metrics", "evaluation.pose_metrics", "losses.pose_loss",
@@ -31,7 +32,8 @@ MODULES = (
     "media.video", "models.convert", "models.depth_anything",
     "models.dinov2", "models.dpt", "models.resnet_pose", "ops.attention",
     "ops.augment", "ops.flash_attention", "ops.quant", "ops.quaternion",
-    "ops.resize", "ops.token_merge",
+    "ops.resize", "ops.token_merge", "parallel", "parallel.mesh",
+    "parallel.pipeline",
     "recon", "recon.native", "recon.ply", "recon.pointcloud",
     "recon.poisson", "recon.stages", "serving.engine", "serving.export",
     "train.depth_task", "train.loop", "train.optim",

@@ -233,8 +233,15 @@ def test_train_pose_cli_end_to_end(tmp_path, monkeypatch):
 
 
 def test_train_pose_refuses_the_parallel_knobs(tmp_path, monkeypatch):
+    """The parallel knobs are no longer refused: ``mesh_model=2`` in one
+    process raises the JAX package's mesh message for one device, before
+    anything is written."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("E3D_CONFIG_ROOT", CONFIG_ROOT)
-    with pytest.raises(SystemExit, match='ROADMAP, "Parallel modes"'):
+    with pytest.raises(ValueError) as want:
+        meshlib.build_mesh(meshlib.MeshSpec(model=2),
+                           devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
         train_pose.main(["++trainer.mesh_model=2", "--device", "cpu"])
+    assert str(got.value) == str(want.value) == "mesh 0x2 != 1 devices"
     assert not (tmp_path / "configs").exists()
