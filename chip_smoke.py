@@ -9,17 +9,23 @@ It builds every CUDA kernel of the port from ``csrc/`` and the host media
 and image codecs from ``csrc/host/`` (one compiler per source, in
 parallel), holds each kernel against its plain PyTorch version on the
 card (K1, K2, K3; K4 and K5 also against K1, and their LSE through the
-default backward; K6 at the decoder's five resizes), and drives the
-port's paths at vitl width with seeded random weights:
+default backward; K6 at vitl's and vitg's decoder resizes, timed on the
+device alone and with the host's enqueue), and drives the port's paths
+at vitl width with seeded random weights. Every forward that autograd
+does not record takes K6 at the decoder's resizes of 128 channels or a
+multiple (vitl 5 a batch, vitg 4; a training forward none):
 
 - serving: vitl DAv2 depth at 518 px, batch 8, through
   ``DepthServingEngine``; checks that the served batches went through K1,
   holds one batch against the same model on the plain attention, and
-  prints timings and a ``torch.profiler`` breakdown of one batch;
+  prints timings and a ``torch.profiler`` breakdown of one batch; phase
+  "throughput" also serves a batch with the resizes on K6 and on the
+  matmul resize (``E3D_PALLAS_RESIZE=0``), in turns;
 - video: ``cli.video_depth.main`` on a 48-frame 475x475 MJPEG AVI, once
   per configuration of the JAX package's knobs (default: K1;
-  ``E3D_PALLAS_RESIZE`` + ``E3D_FLASH_PAIR``: K4 and K6;
-  ``E3D_FLASH_PIPE`` and ``E3D_FLASH_HLOOP``: K5), with the launches held
+  ``E3D_PALLAS_RESIZE`` + ``E3D_FLASH_PAIR``: K4;
+  ``E3D_FLASH_PIPE`` and ``E3D_FLASH_HLOOP``: K5; K6 in each), with the
+  launches held
   to the batches the engine ran, the entry point's 48 depth maps against
   the plain f32 model, every output frame against the rendering of its
   depth map, and once more through ``python -m`` with the knobs in the
@@ -98,8 +104,10 @@ port's paths at vitl width with seeded random weights:
   ``BatchedRunner`` (within 1e-3 of max|live|), K1 24 a replayed batch
   counted inside the ops, device ms and kernel ms against the live
   program, an ``--int8 --int8-calib 2`` artifact (its amax equal to a
-  live calibration's; Q1 248, Q2 124 a batch), one exported under
-  ``E3D_PALLAS_RESIZE`` (K6 5 a batch with the knob off again), and
+  live calibration's; Q1 248, Q2 124 a batch), K6 5 a batch in the
+  plain artifact and 0 in one exported under ``E3D_PALLAS_RESIZE=0``
+  (replayed with the knob reset; each sidecar counts the K6 it holds),
+  and
   fault 3.1's order: export, then the live program, in one process;
 - distillation (phase "distill"): ``cli.train_depth.main`` with a vits
   student and a vitl teacher from a checkpoint the phase saves (518 px,
@@ -164,12 +172,21 @@ JAX_FLASH = f"{JAX_PKG}/ops/flash_attention.py"
 FLAGSHIP = (8, 1370, 16, 64)  # vitl at 518 px: B, N, H, D
 VITG_SHAPE = (8, 1370, 24, 64)  # vitg at 518 px
 VITG_BLOCKS = 40        # vitg depth: one K1 launch per block per batch
+# K6 launches a forward that autograd does not record: the decoder's
+# resizes at 128 channels or a multiple (vitl's five, vitg's four).
+K6_VITL = 5
+K6_VITG = 4
 # The decoder's align-corners resizes at vitl, batch 8, 518 px (NCHW):
 # the four fusion upsamples at 256 channels, then the head's at 128.
 DPT_RESIZES = [((8, 256, 19, 19), (37, 37)), ((8, 256, 37, 37), (74, 74)),
                ((8, 256, 74, 74), (148, 148)),
                ((8, 256, 148, 148), (296, 296)),
                ((8, 128, 296, 296), (518, 518))]
+# vitg's: the fusion upsamples at 384 channels, the head's at 192.
+K6_RESIZES = {"vitl": DPT_RESIZES,
+              "vitg": [((8, 384, h, h), (h2, h2)) for (_, _, h, _), (h2, _)
+                       in DPT_RESIZES[:4]] + [((8, 192, 296, 296),
+                                               (518, 518))]}
 VIDEO_FRAMES = 6 * BATCH
 # Training: 14 microbatches of 8 frames, grad-accum 4 (the trainer's
 # default), so 4 optimizer steps, the last a trailing group of 2.
@@ -195,6 +212,54 @@ def _cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """The card's time a call of ``fn``, without the host's: as
+    ``_cuda_ms``, but a ``torch.cuda._sleep`` that outlasts the host's
+    enqueue of the ``iters`` calls goes before the start event, so the
+    card finds them all queued and runs them back to back. Fails if the
+    sleep ended before the host had enqueued them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (2e3 * host_s + 2.0)))
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if enqueue_ms >= ev[0].elapsed_time(ev[1]):
+        raise AssertionError(f"_device_ms: the host took {enqueue_ms:.3f} "
+                             "ms to enqueue, longer than the card slept")
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
+def _sleep_cycles_per_ms() -> float:
+    """``torch.cuda._sleep``'s cycles a millisecond on this card."""
+    import torch
+
+    if not hasattr(_sleep_cycles_per_ms, "rate"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _sleep_cycles_per_ms.rate = 10_000_000 / start.elapsed_time(end)
+    return _sleep_cycles_per_ms.rate
 
 
 def phase_device() -> str:
@@ -235,15 +300,14 @@ def phase_build() -> None:
                 notes.setdefault(kernel or name, []).append(note.group(1))
             lerp = re.search(
                 r"(?<=\d)(lerp_resize\w*?_kernel)I(13__nv_bfloat16|f)"
-                r"(?:Li(\d+)E)?E",
+                r"(?:Li(\d+)E)?(?:Lb(\d)E)?E",
                 line)
             if "Compiling entry" in line and flash:
                 args = ", ".join(a for a in flash.groups()[1:] if a)
                 print(f"  ptxas {name}: {flash.group(1)}<{args}>")
             elif "Compiling entry" in line and lerp:
                 args = "bf16" if lerp.group(2).endswith("bfloat16") else "f32"
-                if lerp.group(3):
-                    args += f", {lerp.group(3)}"
+                args += "".join(f", {a}" for a in lerp.groups()[2:] if a)
                 print(f"  ptxas {name}: {lerp.group(1)}<{args}>")
             elif "registers" in line or "spill" in line \
                     or "warning" in line.lower() or "(C75" in line:
@@ -504,65 +568,95 @@ def phase_variant_grads() -> None:
 
 
 def phase_k6() -> dict:
-    """K6 against its plain version at the decoder's five resizes (vitl,
-    batch 8, bf16, channels-last memory as the decoder hands it), at most
-    one bf16 ulp apart; per shape, K6's time beside F.interpolate's, the
-    matmul resize's and the bound. The record sums the five: one batch's
-    resizes."""
+    """K6 against its plain version at the decoder's resizes (vitl and
+    vitg, batch 8, bf16, channels-last memory as the decoder hands it), at
+    most one bf16 ulp apart, with the count of elements that differ; per
+    shape, K6's time beside F.interpolate's, the matmul resize's, the
+    plain version's and the bound, each on the device alone
+    (``_device_ms``) and with the host's enqueue in it (``_cuda_ms``).
+    The record sums vitl's five: one batch's resizes."""
     import torch
     import torch.nn.functional as F
 
     rz = importlib.import_module(f"{PKG}.ops.resize")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_ms": 0.0,
-           "bound_ms": 0.0}
+    keys = ("ms", "host_ms", "plain_ms", "library_ms", "library_host_ms",
+            "matmul_ms", "matmul_host_ms", "bound_ms", "fill_ms")
+    tot = {model: dict.fromkeys(keys, 0.0) for model in K6_RESIZES}
     max_err = 0.0
-    for shape, out_hw in DPT_RESIZES:
-        gen = torch.Generator(device="cuda").manual_seed(shape[2])
-        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        x = x.contiguous(memory_format=torch.channels_last)
-        with torch.no_grad():
-            y = rz.lerp_resize(x, out_hw)
-            torch.cuda.synchronize()
-            ref = rz.lerp_resize_reference(x, out_hw)
-        diff = (y.float() - ref.float()).abs()
-        ulp = ref.float().abs() * 2.0 ** -7  # one bf16 ulp, at most
-        off = int((diff > 0).sum())
-        diff_max = diff.max().item()
-        if not bool((diff <= ulp + 1e-30).all()) or not y.is_contiguous(
-                memory_format=torch.channels_last):
-            raise AssertionError(f"K6 {shape} -> {out_hw}: more than one "
-                                 "bf16 ulp from its plain version")
-        del diff, ulp, ref
-        max_err = max(max_err, diff_max)
-        t = {"ms": _cuda_ms(lambda: rz.lerp_resize(x, out_hw), iters=20),
-             "plain_ms": _cuda_ms(lambda: rz.lerp_resize_reference(
-                 x, out_hw), iters=5, warmup=1),
-             "library_ms": _cuda_ms(lambda: F.interpolate(
-                 x, size=out_hw, mode="bilinear", align_corners=True),
-                 iters=20),
-             "matmul_ms": _cuda_ms(lambda: rz._apply_separable(
-                 x, rz._align_corners_matrix, out_hw, "bilinear", False),
-                 iters=20),
-             "bound_ms": (x.numel() + y.numel()) * 2 / PEAK_BYTES * 1e3}
-        for key, val in t.items():
-            tot[key] += val
-        print(f"K6 {shape[1]} ch {shape[2]}->{out_hw[0]}: kernel "
-              f"{t['ms']:.4f} ms, F.interpolate {t['library_ms']:.4f} ms, "
-              f"matmul resize {t['matmul_ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"(bytes); {off} of {y.numel()} elements differ from the "
-              f"plain version, max {diff_max:.3e}")
-        del x, y
-    print(f"K6 per batch (five resizes): kernel {tot['ms']:.4f} ms, "
-          f"F.interpolate {tot['library_ms']:.4f} ms, matmul resize "
-          f"{tot['matmul_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    for model, resizes in K6_RESIZES.items():
+        for shape, out_hw in resizes:
+            gen = torch.Generator(device="cuda").manual_seed(shape[2])
+            x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+            x = x.contiguous(memory_format=torch.channels_last)
+            with torch.no_grad():
+                y = rz.lerp_resize(x, out_hw)
+                torch.cuda.synchronize()
+                ref = rz.lerp_resize_reference(x, out_hw)
+            diff = (y.float() - ref.float()).abs()
+            ulp = ref.float().abs() * 2.0 ** -7  # one bf16 ulp, at most
+            off = int((diff > 0).sum())
+            diff_max = diff.max().item()
+            if not bool((diff <= ulp + 1e-30).all()) or not y.is_contiguous(
+                    memory_format=torch.channels_last):
+                raise AssertionError(f"K6 {shape} -> {out_hw}: more than "
+                                     "one bf16 ulp from its plain version")
+            del diff, ulp, ref
+            max_err = max(max_err, diff_max)
+            calls = {
+                "": lambda: rz.lerp_resize(x, out_hw),
+                "library_": lambda: F.interpolate(
+                    x, size=out_hw, mode="bilinear", align_corners=True),
+                "matmul_": lambda: rz._apply_separable(
+                    x, rz._align_corners_matrix, out_hw, "bilinear", False)}
+            t = {"bound_ms": (x.numel() + y.numel()) * 2 / PEAK_BYTES * 1e3,
+                 "plain_ms": _device_ms(lambda: rz.lerp_resize_reference(
+                     x, out_hw), iters=5, warmup=1),
+                 # What the card's writes alone take: a fill of y's bytes.
+                 "fill_ms": _device_ms(lambda: y.fill_(1.0), iters=20)}
+            for key, fn in calls.items():
+                t[f"{key}ms"] = _device_ms(fn, iters=20)
+                t[f"{key}host_ms"] = _cuda_ms(fn, iters=20)
+            for key, val in t.items():
+                tot[model][key] += val
+            plan = rz._lerp_plan(*shape, *out_hw, x.element_size(),
+                                 rz._sm_count(0))
+            print(f"K6 {model} {shape[1]} ch {shape[2]}->{out_hw[0]} plan: "
+                  f"{plan.tiles} tiles of {plan.band} rows x {plan.span} "
+                  f"columns ({plan.src_cols} source columns a slot, ring "
+                  f"{plan.ring}), grid {plan.grid} of {plan.threads} "
+                  f"threads, {plan.smem} bytes of shared memory a block")
+            print(f"K6 {model} {shape[1]} ch {shape[2]}->{out_hw[0]}: "
+                  f"kernel {t['ms']:.4f} ms device, {t['host_ms']:.4f} ms "
+                  f"with the host ({100 * t['bound_ms'] / t['ms']:.1f}% of "
+                  f"the bound); F.interpolate {t['library_ms']:.4f} / "
+                  f"{t['library_host_ms']:.4f} ms; matmul resize "
+                  f"{t['matmul_ms']:.4f} / {t['matmul_host_ms']:.4f} ms; "
+                  f"plain {t['plain_ms']:.4f} ms; bound "
+                  f"{t['bound_ms']:.4f} ms (bytes); a fill of the output "
+                  f"{t['fill_ms']:.4f} ms; {off} of {y.numel()} "
+                  f"elements differ from the plain version, max "
+                  f"{diff_max:.3e}")
+            del x, y
+        s = tot[model]
+        print(f"K6 {model} per batch ({len(resizes)} resizes): kernel "
+              f"{s['ms']:.4f} ms device, {s['host_ms']:.4f} ms with the "
+              f"host ({100 * s['bound_ms'] / s['ms']:.1f}% of the bound); "
+              f"F.interpolate {s['library_ms']:.4f} / "
+              f"{s['library_host_ms']:.4f} ms; matmul resize "
+              f"{s['matmul_ms']:.4f} / {s['matmul_host_ms']:.4f} ms; bound "
+              f"{s['bound_ms']:.4f} ms; fills of the outputs "
+              f"{s['fill_ms']:.4f} ms")
+    vitl = tot["vitl"]
     return {"name": "lerp_resize", "route": "cuda",
             "source": f"{PKG}/csrc/lerp_resize.cu",
             "replaces": f"{JAX_PKG}/ops/resize.py:354",
-            "max_abs_err": max_err, "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": "bytes", "library_ms": tot["library_ms"],
-            "matmul_ms": tot["matmul_ms"]}
+            "max_abs_err": max_err, "ms": vitl["ms"],
+            "plain_ms": vitl["plain_ms"], "bound_ms": vitl["bound_ms"],
+            "bound_by": "bytes", "library_ms": vitl["library_ms"],
+            **{k: vitl[k] for k in ("host_ms", "library_host_ms",
+                                     "matmul_ms", "matmul_host_ms",
+                                     "fill_ms")},
+            "vitg": tot["vitg"]}
 
 
 def _frames(n: int, seed: int):
@@ -584,7 +678,7 @@ def _check_maps(maps) -> None:
 
 def phase_serve(model, frames) -> dict[str, int]:
     """The main path: vitl depth served by DepthServingEngine. Returns
-    every kernel's launches in this run (K1 only: no dial is on)."""
+    every kernel's launches in this run (K1 and K6: no dial is on)."""
     import torch
 
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
@@ -603,14 +697,14 @@ def phase_serve(model, frames) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = _video_counts(fa, rz)
     stats = engine.stats()
-    want = _want(K1=BLOCKS * stats["batches"])
+    want = _want(K1=BLOCKS * stats["batches"], K6=K6_VITL * stats["batches"])
     _check_maps(maps)
     print(f"serve: {len(maps)} frames of {FRAME_HW} in {stats['batches']} "
           f"batches, {seconds:.2f} s (first batch sets up the libraries); "
           f"launches {counts}; maps finite, in [0, 20]")
     if stats["failed"] or stats["batches"] < 3 or counts != want:
         raise AssertionError(f"serve: stats {stats}, launches {counts}, "
-                             f"want {want} ({BLOCKS} K1 per batch)")
+                             f"want {want} ({BLOCKS} K1 and {K6_VITL} K6 per batch)")
     return counts
 
 
@@ -724,6 +818,74 @@ def phase_throughput(model, frames, k1_ms: float, smi: str) -> None:
               f"{stats['runner_seconds']:.2f} of {serve_s:.2f} s)")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB")
+    _resize_ab(model, batch, runner, x, smi)
+
+
+def _resize_ab(model, batch, runner, x, smi: str) -> None:
+    """The served batch with the decoder's resizes on K6 (the default)
+    and on the matmul resize (``E3D_PALLAS_RESIZE=0``, the module flag),
+    in turns (matmul, K6, K6, matmul): device ms a batch (CUDA events),
+    kernel ms a batch (torch.profiler), K6's launches a batch, and the
+    maps' distance from the plain f32 model (plain attention, f32, K6 in
+    f32), held to the rule of phase "plain": no further than 1.5x the
+    plain bf16 model's (plain attention, the matmul resize)."""
+    import numpy as np
+    import torch
+
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    from torch.autograd import DeviceType
+
+    attn.set_force_plain(True)
+    try:
+        with _Knobs({"_NO_PALLAS_RESIZE": True}):
+            plain = np.stack(runner(batch))
+        model.pretrained.dtype = torch.float32
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=False):
+            f32 = np.stack(runner(batch))
+    finally:
+        model.pretrained.dtype = torch.bfloat16
+        attn.set_force_plain(False)
+    d_pf = np.abs(plain - f32).mean()
+
+    def forward():
+        return da._run_batched_u8(model, x, runner.net_hw, FRAME_HW)
+
+    results = []
+    for label in ("matmul", "K6", "K6 ", "matmul "):
+        flags = {"_NO_PALLAS_RESIZE": True} if label.startswith("matmul") \
+            else {}
+        with _Knobs(flags):
+            torch.cuda.synchronize()
+            _video_counts(fa, rz, zero=True)
+            maps = np.stack(runner(batch))
+            torch.cuda.synchronize()
+            k6 = _video_counts(fa, rz)["K6"]
+            dev_ms = _cuda_ms(forward, iters=10, warmup=2)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    forward()
+                torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 3e3
+        d = np.abs(maps - f32)
+        results.append((label.strip(), dev_ms, busy, k6, d.mean()))
+        print(f"  resize A/B [{label.strip():6s}]: device {dev_ms:.2f} "
+              f"ms/batch ({BATCH / dev_ms * 1e3:.2f} frames/s), kernels "
+              f"{busy:.2f} ms/batch, K6 {k6} a batch; maps vs plain f32: "
+              f"mean {d.mean():.5f} m, max {d.max():.4f} m (plain bf16 "
+              f"with the matmul resize: mean {d_pf:.5f}); {smi}")
+    for label, _, _, k6, dist in results:
+        if k6 != (K6_VITL if label == "K6" else 0) or dist > 1.5 * d_pf:
+            raise AssertionError(f"resize A/B [{label}]: K6 {k6}, distance "
+                                 f"from f32 {dist} (rule {1.5 * d_pf})")
 
 
 def _print_profile(prof, wall_us: float, plain_wall_us: float, iters: int,
@@ -776,11 +938,14 @@ def phase_profile(model, frames) -> None:
 # Per configuration of the JAX package's knobs: the module flags to set,
 # and the launches each batch the engine runs must make.
 VIDEO_CONFIGS = {
-    "default": ({}, {"K1": BLOCKS, "K4": 0, "K5": 0, "K6": 0}),
+    "default": ({}, {"K1": BLOCKS, "K4": 0, "K5": 0, "K6": K6_VITL}),
     "PALLAS_RESIZE + PAIR": ({"_PAIR": True, "_PALLAS_RESIZE": True},
-                             {"K1": 0, "K4": BLOCKS, "K5": 0, "K6": 5}),
-    "PIPE": ({"_PIPE": True}, {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": 0}),
-    "HLOOP": ({"_HLOOP": True}, {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": 0}),
+                             {"K1": 0, "K4": BLOCKS, "K5": 0,
+                              "K6": K6_VITL}),
+    "PIPE": ({"_PIPE": True},
+             {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": K6_VITL}),
+    "HLOOP": ({"_HLOOP": True},
+              {"K1": 0, "K4": 0, "K5": BLOCKS, "K6": K6_VITL}),
 }
 
 
@@ -802,8 +967,8 @@ class _Knobs:
     """Set the port's module flags of one configuration; restore them."""
 
     def __init__(self, flags: dict):
-        self.mods = {"_PALLAS_RESIZE": importlib.import_module(
-            f"{PKG}.ops.resize")}
+        rz = importlib.import_module(f"{PKG}.ops.resize")
+        self.mods = {"_PALLAS_RESIZE": rz, "_NO_PALLAS_RESIZE": rz}
         fa = importlib.import_module(f"{PKG}.ops.flash_attention")
         self.mods.update({k: fa for k in ("_PAIR", "_PIPE", "_HLOOP")})
         self.flags = flags
@@ -1370,6 +1535,7 @@ def phase_train(data, smi: str) -> tuple:
 
     n_mb = TRAIN_MICROBATCHES
     want = _want(K1=2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES,
+                 K6=K6_VITL * VAL_BATCHES,
                  **{_bwd_name(fused): BLOCKS * n_mb})
     steps = -(-n_mb // ACCUM)
     train = [r for r in records if "train_loss" in r]
@@ -1426,7 +1592,7 @@ def phase_train_other(data) -> dict:
     name = _bwd_name(fused)
     _, state, counts, records, seconds = _fit(data, fused=fused, max_steps=1)
     want = _want(K1=2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES,
-                 **{name: BLOCKS * ACCUM})
+                 K6=K6_VITL * VAL_BATCHES, **{name: BLOCKS * ACCUM})
     loss = next(r["train_loss"] for r in records if "train_loss" in r)
     print(f"train on {name} (the other backward): {state.step} optimizer "
           f"step of {ACCUM} microbatches in {seconds:.2f} s, loss "
@@ -1598,7 +1764,8 @@ def _check_maps_relative(label: str, maps, plain, f32) -> None:
 
 
 def phase_infer_cli(model, tmp: str, smi: str, encoder: str = "vitl",
-                    blocks: int = BLOCKS, rerun: bool = True) -> tuple:
+                    blocks: int = BLOCKS, resizes: int = K6_VITL,
+                    rerun: bool = True) -> tuple:
     """``cli.infer.main --encoder <encoder>`` (vitl by default) on a SimCol
     tree of 32 frames (batch 8, ``--save-numpy``): K1's launches, every
     map against the plain f32 model (``model``: the CLI's own seeded
@@ -1631,7 +1798,7 @@ def phase_infer_cli(model, tmp: str, smi: str, encoder: str = "vitl",
     torch.cuda.synchronize()
     counts = _video_counts(fa, rz)
     batches = -(-CLI_FRAMES // BATCH)
-    want = _want(K1=blocks * batches)
+    want = _want(K1=blocks * batches, K6=resizes * batches)
     host = 1.0 - result["model_seconds"] / result["seconds"]
     print(f"infer CLI ({encoder}): {result['processed']} frames of "
           f"{FRAME_HW} in "
@@ -1700,7 +1867,7 @@ def phase_serve_cli(paths, plain, f32, tmp: str, smi: str) -> dict:
     seconds = time.perf_counter() - t0
     counts = _video_counts(fa, rz)
     stats = result["stats"]
-    want = _want(K1=BLOCKS * stats["batches"])
+    want = _want(K1=BLOCKS * stats["batches"], K6=K6_VITL * stats["batches"])
     print(f"serve CLI: {result['served']} frames served in "
           f"{stats['batches']} batches (fill {stats['mean_batch_fill']:.2f}), "
           f"{seconds:.2f} s through main() (model init, decode, serve, "
@@ -1802,7 +1969,7 @@ def phase_train_cli(tmp: str, smi: str) -> tuple:
     val_batches = len(val) * -(-2 * TRAIN_CLI_FRAMES // BATCH)
     bwd = _bwd_name(fa._BWD_FUSED)
     want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
-                 **{bwd: BLOCKS * microbatches})
+                 K6=K6_VITL * val_batches, **{bwd: BLOCKS * microbatches})
     saved = sorted(os.listdir(ckpt_dir))
     snapshot = os.path.join(run_dir, ".hydra", "config.yaml")
     print(f"train_depth CLI, vitl 518 px, 16-mixed, gradient "
@@ -1853,7 +2020,7 @@ def phase_test_cli(ckpt_dir: str, data: list, tmp: str, smi: str) -> dict:
     seconds = time.perf_counter() - t0
     counts = _video_counts(fa, rz)
     batches = -(-2 * TRAIN_CLI_FRAMES // BATCH)
-    want = _want(K1=BLOCKS * batches)
+    want = _want(K1=BLOCKS * batches, K6=K6_VITL * batches)
     attn.set_force_plain(True)
     try:
         plain = run("results_plain_bf16")
@@ -1913,7 +2080,8 @@ def phase_vitg_serve(tmp: str, smi: str) -> dict[str, int]:
     model = da.build_depth_model("vitg", max_depth=20.0, device="cuda",
                                  seed=0)
     counts, _, bgr, _, _ = phase_infer_cli(model, tmp, smi, "vitg",
-                                           VITG_BLOCKS, rerun=False)
+                                           VITG_BLOCKS, K6_VITG,
+                                           rerun=False)
     batch = bgr[:BATCH]
     runner = da.BatchedRunner(model, FRAME_HW, 518, BATCH)
     runner(batch)
@@ -1938,7 +2106,7 @@ def phase_vitg_serve(tmp: str, smi: str) -> dict[str, int]:
           f"{dev_ms:.2f} ms/batch, {BATCH / dev_ms * 1e3:.2f} frames/s; "
           f"peak device memory {peak:.2f} GiB; launches over {iters} "
           f"batches {runner_counts}")
-    if runner_counts != _want(K1=VITG_BLOCKS * iters):
+    if runner_counts != _want(K1=VITG_BLOCKS * iters, K6=K6_VITG * iters):
         raise AssertionError(f"vitg serve: launches {runner_counts}")
     return counts
 
@@ -2383,7 +2551,7 @@ def phase_recon_model(root: str, plain, f32, tmp: str, smi: str
                                      "-o", out])
     torch.cuda.synchronize()
     counts = _video_counts(fa, rz)
-    want = _want(K1=BLOCKS * CLI_FRAMES)
+    want = _want(K1=BLOCKS * CLI_FRAMES, K6=K6_VITL * CLI_FRAMES)
     print(f"recon (b) pointcloud_model (vitl, 518 px), {result['frames']} "
           f"frames of {FRAME_HW}: {result['seconds']:.2f} s through main() "
           f"(model init, decode, one frame at a time, back-projection, PLY "
@@ -2556,9 +2724,10 @@ def _rel(maps, ref) -> float:
 
 def _site_launches(dial: str) -> dict[str, int]:
     """Per batch of 8 under the auto scope (all at batch 8): K1 once a
-    block; Q2 once a site, Q1 twice (activations and weights)."""
+    block, K6 once a decoder resize; Q2 once a site, Q1 twice
+    (activations and weights)."""
     sites = 24 * 4 + DPT_SITES if dial.startswith("int8") else 0
-    return _want(K1=BLOCKS, Q1=2 * sites, Q2=sites)
+    return _want(K1=BLOCKS, K6=K6_VITL, Q1=2 * sites, Q2=sites)
 
 
 def phase_quant_kernels(smi: str) -> tuple[dict, dict]:
@@ -2860,7 +3029,7 @@ def phase_dials(model, frames, cli_paths, cli_plain, cli_f32, tmp: str,
     torch.cuda.synchronize()
     counts = _video_counts(fa, rz)
     sites64 = 24 * 2 + DPT_SITES
-    want = _want(K1=BLOCKS, Q1=2 * sites64, Q2=sites64)
+    want = _want(K1=BLOCKS, K6=K6_VITL, Q1=2 * sites64, Q2=sites64)
     if counts != want:
         raise AssertionError(f"dials: auto scope at batch 64 launched "
                              f"{counts}, want {want} (mlp)")
@@ -3104,9 +3273,10 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
     ``cli.serve.main --from-export`` against a live ``BatchedRunner``,
     the launches a replayed batch counts inside the ops, device ms a
     batch against the live program, an ``--int8 --int8-calib 2``
-    artifact, one exported under ``E3D_PALLAS_RESIZE`` (K6 fixed into
-    it), and fault 3.1's order (export, then the live program, in one
-    process). Returns the launches by path."""
+    artifact, one exported under ``E3D_PALLAS_RESIZE=0`` (the matmul
+    resize fixed into it; the plain one holds K6), and fault 3.1's order
+    (export, then the live program, in one process). Returns the
+    launches by path."""
     import os
 
     import numpy as np
@@ -3170,7 +3340,7 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
     torch.cuda.synchronize()
     counts = {"export": _video_counts(fa, rz)}
     n_batches = len(batches)
-    want = _want(K1=BLOCKS * n_batches)
+    want = _want(K1=BLOCKS * n_batches, K6=K6_VITL * n_batches)
     print(f"  exported_runner on {len(bgr)} frames ({n_batches} batches): "
           f"launches {counts['export']} (want {want})")
     if counts["export"] != want:
@@ -3203,7 +3373,7 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
     seconds = time.perf_counter() - t0
     counts["export_serve_cli"] = _video_counts(fa, rz)
     stats = result["stats"]
-    want = _want(K1=BLOCKS * stats["batches"])
+    want = _want(K1=BLOCKS * stats["batches"], K6=K6_VITL * stats["batches"])
     names = sorted(f[:-4] for f in os.listdir(out) if f.endswith(".npy"))
     served = np.stack([np.load(os.path.join(out, f"{n}.npy"))
                        for n in names])
@@ -3240,8 +3410,8 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
     replay8 = torch.cat([prog8(params, b) for b in batches]).cpu()
     torch.cuda.synchronize()
     counts["export_int8"] = _video_counts(fa, rz)
-    want = _want(K1=BLOCKS * n_batches, Q1=248 * n_batches,
-                 Q2=124 * n_batches)
+    want = _want(K1=BLOCKS * n_batches, K6=K6_VITL * n_batches,
+                 Q1=248 * n_batches, Q2=124 * n_batches)
     print(f"  int8 replay of {n_batches} batches: launches "
           f"{counts['export_int8']} (want {want})")
     if counts["export_int8"] != want:
@@ -3251,26 +3421,37 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
                  replay8.numpy(), live8.numpy())
     del model8, program8, frozen, prog8
 
-    # K6 fixed into an artifact exported under E3D_PALLAS_RESIZE; the
-    # replay takes it with the knob off again.
-    with _Knobs({"_PALLAS_RESIZE": True}):
-        meta6, path6, _ = _export_cli(tmp, "vitl_k6.pt2")
-    prog6 = ex.load_exported(path6)
+    # The resize is fixed at export: K6 in the plain artifact (the card's
+    # default), the matmul resize in one traced under the opt-out
+    # (E3D_PALLAS_RESIZE=0), which its replay keeps with the knob reset;
+    # each sidecar says which the program holds.
+    print(f"  plain artifact's sidecar: pallas_resize "
+          f"{meta['pallas_resize']}, {meta['lerp_resize_nodes']} K6 nodes")
+    if not meta["pallas_resize"] or meta["lerp_resize_nodes"] != K6_VITL:
+        raise AssertionError(f"export: sidecar {meta['pallas_resize']}, "
+                             f"{meta['lerp_resize_nodes']} K6 nodes")
+    opt_out = {"_NO_PALLAS_RESIZE": True}
+    with _Knobs(opt_out):
+        meta0, path0, _ = _export_cli(tmp, "vitl_opt_out.pt2")
+    prog0 = ex.load_exported(path0)
     torch.cuda.synchronize()
     _video_counts(fa, rz, zero=True)
-    replay6 = prog6(params, x)
+    replay0 = prog0(params, x)
     torch.cuda.synchronize()
-    counts["export_k6"] = _video_counts(fa, rz)
-    want = _want(K1=BLOCKS, K6=5)
-    print(f"export under E3D_PALLAS_RESIZE (sidecar pallas_resize "
-          f"{meta6['pallas_resize']}): one replayed batch with the knob "
-          f"off launches {counts['export_k6']} (want {want})")
-    if counts["export_k6"] != want or not meta6["pallas_resize"]:
-        raise AssertionError(f"export K6: {counts['export_k6']}")
-    with _Knobs({"_PALLAS_RESIZE": True}):
-        live6 = da._run_batched(model, x, net_hw, FRAME_HW)
-    _replay_rule("K6 artifact vs the live program on K6",
-                 replay6.cpu().numpy(), live6.cpu().numpy())
+    counts["export_opt_out"] = _video_counts(fa, rz)
+    want = _want(K1=BLOCKS)
+    print(f"export under E3D_PALLAS_RESIZE=0 (sidecar pallas_resize "
+          f"{meta0['pallas_resize']}, {meta0['lerp_resize_nodes']} K6 "
+          f"nodes): one replayed batch with the knob reset launches "
+          f"{counts['export_opt_out']} (want {want})")
+    if counts["export_opt_out"] != want or meta0["lerp_resize_nodes"] \
+            or meta0["pallas_resize"]:
+        raise AssertionError(f"export opt-out: {counts['export_opt_out']}, "
+                             f"{meta0}")
+    with _Knobs(opt_out):
+        live0 = da._run_batched(model, x, net_hw, FRAME_HW)
+    _replay_rule("opt-out artifact vs the live program under the opt-out",
+                 replay0.cpu().numpy(), live0.cpu().numpy())
     return counts
 
 
@@ -3329,11 +3510,12 @@ def phase_distill(cli_data: list, tmp: str, smi: str) -> dict[str, int]:
     student = dino.VIT_ARCHS["vits"]["depth"]
     microbatches = TRAIN_CLI_FRAMES // BATCH
     val_batches = len(val) * -(-2 * TRAIN_CLI_FRAMES // BATCH)
-    # The teacher's forward (24 K1) on each microbatch; the student's
-    # forward and recompute (2 x 12 K1) and backward (12) as phase
-    # "train" counts vitl's; the student alone validates.
+    # The teacher's forward (24 K1, and K6 at its decoder's resizes: it
+    # runs under no_grad) on each microbatch; the student's forward and
+    # recompute (2 x 12 K1) and backward (12) as phase "train" counts
+    # vitl's; the student alone validates (vits: no K6).
     want = _want(K1=(BLOCKS + 2 * student) * microbatches
-                 + student * val_batches,
+                 + student * val_batches, K6=K6_VITL * microbatches,
                  **{_bwd_name(fa._BWD_FUSED): student * microbatches})
     print(f"distill: train_depth, vits student, vitl teacher from "
           f"{os.path.basename(teacher_path)}, 518 px, 16-mixed, gradient "
@@ -3684,8 +3866,9 @@ def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
                             "++trainer.distributed=true"]
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     microbatches = TRAIN_CLI_FRAMES // BATCH
-    want = _want(K1=2 * BLOCKS * microbatches
-                 + BLOCKS * -(-2 * TRAIN_CLI_FRAMES // BATCH),
+    val_batches = -(-2 * TRAIN_CLI_FRAMES // BATCH)
+    want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
+                 K6=K6_VITL * val_batches,
                  **{_bwd_name(fa._BWD_FUSED): BLOCKS * microbatches})
     by_run, peaks = {}, {}
     for label, ranks, extra, backend in PARALLEL_RUNS:
@@ -3955,8 +4138,12 @@ def main() -> int:
     k5["hloop"] = {key: k5_loop[key] for key in
                    ("replaces", "max_abs_err", "ms", "plain_ms",
                     "library_ms", "max_diff_k1")}
-    k6["launches"] = pair["K6"]
-    k6["launches_by_path"] = {"video": pair["K6"]}
+    # K6: the served batches (the main path); every video configuration
+    # takes it by default.
+    k6["launches"] = serve["K6"]
+    k6["launches_by_path"] = {
+        "video": sum(c["K6"] for c in video.values()),
+        **{f"video[{cfg}]": c["K6"] for cfg, c in video.items()}}
     # Q1 and Q2 run only under a dial: "dials_*" are phase "dials"'s
     # paths (BatchedRunner, the engine and the infer CLI per dial).
     for name, rec in (("Q1", q1), ("Q2", q2)):
@@ -3969,7 +4156,9 @@ def main() -> int:
                       ("K5", k5), ("K6", k6), ("Q1", q1), ("Q2", q2)):
         rec["launches_by_path"].update(
             {path: counts[name] for path, counts in by_path.items()})
-    k1["launches_by_path"]["dials"] = sum(c["K1"] for c in dials.values())
+    for rec, name in ((k1, "K1"), (k6, "K6")):
+        rec["launches_by_path"]["dials"] = sum(c[name]
+                                               for c in dials.values())
     # Each op's host cost a call against its direct launch (phase
     # "dispatch"): K4 and K5 share K1's op, K3 K2's.
     for rec, op in ((k1, "K1"), (k4, "K1"), (k5, "K1"), (k2, "K2"),

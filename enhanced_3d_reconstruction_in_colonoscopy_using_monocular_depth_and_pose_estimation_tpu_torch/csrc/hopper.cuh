@@ -5,9 +5,11 @@
 // commit, wait, the m64nNk16 products with A from shared memory or from
 // registers), setmaxnreg, and the host-side tensor-map encoder reached
 // through the driver entry point, so no library links libcuda.
+// lerp_resize.cu's resize takes the mbarriers, named barriers and 1-D
+// bulk loads.
 //
 // Included by each source; utils/cbuild.py folds every csrc/*.cuh into
-// each library's hash, so a change here rebuilds both.
+// each library's hash, so a change here rebuilds them all.
 
 #pragma once
 
@@ -114,6 +116,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, completing on `bar`: a 1-D bulk copy.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -25,11 +25,17 @@ decoder's NCHW layout.
 
 Kernel K6 (``lerp_resize``, ``csrc/lerp_resize.cu``) is the align-corners
 bilinear resize as a 2-tap lerp, the JAX package's
-``_lerp_resize_pallas``. ``resize_align_corners`` takes it under the same
-``E3D_PALLAS_RESIZE`` knob (read at import into ``_PALLAS_RESIZE``) on the
-same conditions: bilinear, 4-D, channels a multiple of 128, both input
-sides at least 2. Its plain version is ``lerp_resize_reference``, which is
-not the matmul resize: that one rounds its weights to bf16.
+``_lerp_resize_pallas``. ``resize_align_corners`` takes it on the JAX
+package's conditions (bilinear, 4-D, channels a multiple of 128, both
+input sides at least 2) wherever ``takes_lerp`` says so: on the card for
+every forward that autograd does not record (serving, video, the CLIs,
+validation, a teacher, an export trace); under ``E3D_PALLAS_RESIZE=1``
+(``_PALLAS_RESIZE``, the JAX package's knob) everywhere, the CPU taking its
+plain version; never under ``E3D_PALLAS_RESIZE=0`` (``_NO_PALLAS_RESIZE``,
+the opt-out), nor in a recorded forward (K6 has no backward), nor on the
+CPU by default (the JAX package's default, the matmul resize). Its plain
+version is ``lerp_resize_reference``, which is not the matmul resize: that
+one rounds its weights to bf16.
 """
 
 from __future__ import annotations
@@ -37,17 +43,29 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..core.device import device_cache
+from ..core.device import aligned16, device_cache
 from ..utils import cbuild
 
-# The JAX package's E3D_PALLAS_RESIZE knob: every decoder upsample on K6.
-_PALLAS_RESIZE = os.environ.get("E3D_PALLAS_RESIZE", "0") == "1"
+# The JAX package's E3D_PALLAS_RESIZE knob: "1" puts every decoder upsample
+# on K6 (the CPU on its plain version); "0" opts the card out of K6.
+_PALLAS_RESIZE = os.environ.get("E3D_PALLAS_RESIZE") == "1"
+_NO_PALLAS_RESIZE = os.environ.get("E3D_PALLAS_RESIZE") == "0"
 _LERP_LIB = "lerp_resize"
 _LERP_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K6's plan: the bytes of source columns a ring slot holds, the stages the
+# ring holds (at most 8); the kernel's W and H threads a block (kWThreads +
+# kHThreads) and H rows in flight (kHRing); the card's shared memory.
+_LERP_SLOT_BYTES = 8192
+_LERP_RING = 4
+_LERP_THREADS = 384
+_LERP_H_RING = 3
+_SMEM_PER_SM = 233472     # 228 KB, of which 1 KB is reserved per block
+_SMEM_PER_BLOCK = 232448  # 227 KB
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.5) -> np.ndarray:
@@ -196,22 +214,38 @@ def resize_antialias(x: torch.Tensor, out_hw: tuple[int, int],
                             channels_last)
 
 
-def _takes_lerp(x: torch.Tensor, method: str, channels_last: bool) -> bool:
-    """The JAX package's conditions for K6: bilinear, 4-D, channels a
-    multiple of 128, both input sides at least 2."""
-    if not (_PALLAS_RESIZE and method == "bilinear" and x.dim() == 4):
+def takes_lerp(device_type: str, records: bool, shape: tuple[int, ...],
+               method: str, channels_last: bool, knob: str | None) -> bool:
+    """Whether an align-corners resize of ``shape`` goes to K6. ``knob`` is
+    ``E3D_PALLAS_RESIZE``: "1" (K6 wherever the JAX package's conditions
+    hold: bilinear, 4-D, channels a multiple of 128, both input sides at
+    least 2), "0" (never) or None (unset: K6 on the card, on those
+    conditions, when autograd does not record the call, which K6 could
+    not differentiate; the CPU keeps the matmul resize)."""
+    if knob == "0" or method != "bilinear" or len(shape) != 4:
         return False
-    c = x.shape[3] if channels_last else x.shape[1]
-    return c % 128 == 0 and min(_hw(x, channels_last)) >= 2
+    if knob != "1" and (device_type != "cuda" or records):
+        return False
+    c, hw = ((shape[3], shape[1:3]) if channels_last
+             else (shape[1], shape[2:]))
+    return c % 128 == 0 and min(hw) >= 2
+
+
+def _takes_lerp(x: torch.Tensor, method: str, channels_last: bool) -> bool:
+    """``takes_lerp`` for ``x`` under the module's knobs."""
+    knob = "1" if _PALLAS_RESIZE else "0" if _NO_PALLAS_RESIZE else None
+    return takes_lerp(x.device.type,
+                      torch.is_grad_enabled() and x.requires_grad,
+                      tuple(x.shape), method, channels_last, knob)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: tuple[int, int],
                          method: str = "bilinear",
                          channels_last: bool = True) -> torch.Tensor:
     """torch ``F.interpolate(..., align_corners=True)``-style resize; K6
-    under ``_PALLAS_RESIZE`` where it applies (NHWC input goes to it as
-    the NCHW view of channels-last memory; the decoder's NCHW tensors
-    already lie in that memory), else the matmul resize."""
+    where ``takes_lerp`` says so (NHWC input goes to it as the NCHW view
+    of channels-last memory; the decoder's NCHW tensors already lie in
+    that memory), else the matmul resize."""
     if _takes_lerp(x, method, channels_last):
         if not channels_last:
             return lerp_resize(x, out_hw)
@@ -251,6 +285,148 @@ def _device_taps(n_in: int, n_out: int, device: torch.device
                      for t in _lerp_taps(n_in, n_out))
 
 
+def _pass_taps(n_in: int, n_out: int) -> tuple[np.ndarray, ...]:
+    """K6's taps along one axis: ``_lerp_taps``, or copies (lo = index,
+    w1 = 0) where the size does not change and the pass is skipped."""
+    if n_in == n_out:
+        return (np.arange(n_out, dtype=np.int32),
+                np.ones(n_out, np.float32), np.zeros(n_out, np.float32))
+    return _lerp_taps(n_in, n_out)
+
+
+class LerpPlan(NamedTuple):
+    """K6's tiles, ring and launch (``_lerp_plan``), and its tables."""
+    span: int          # output columns a tile spans
+    spans: int
+    band: int          # output rows a tile holds
+    bands: int
+    ring: int          # stages (source-row spans) in shared memory
+    src_cols: int      # source columns a ring slot holds (the widest span)
+    vec: int           # elements an access moves
+    threads: int
+    grid: int          # persistent blocks
+    smem: int          # dynamic shared memory a block, bytes
+    tiles: int
+    stage_row: np.ndarray    # int32: the source rows some output row reads
+    first_stage: np.ndarray  # int32 (h2): index of lo_y in stage_row
+    w0_y: np.ndarray
+    w1_y: np.ndarray
+    lo_x: np.ndarray         # int32 (w2)
+    w0_x: np.ndarray
+    w1_x: np.ndarray
+
+    def tile(self, t: int) -> tuple[int, slice, slice, slice, slice]:
+        """Tile ``t``'s image, output rows and columns, source columns and
+        stages (indices into ``stage_row``), as the kernel's ``tile_at``."""
+        k, rest = t % self.spans, t // self.spans
+        b, img = rest % self.bands, rest // self.bands
+        h2, w2 = len(self.first_stage), len(self.lo_x)
+        oy0, ox0 = b * self.band, k * self.span
+        oy1, ox1 = min(h2, oy0 + self.band), min(w2, ox0 + self.span)
+        sx1 = int(self.lo_x[ox1 - 1]) + int(self.w1_x[ox1 - 1] != 0) + 1
+        s1 = (int(self.first_stage[oy1 - 1])
+              + int(self.w1_y[oy1 - 1] != 0) + 1)
+        return (img, slice(oy0, oy1), slice(ox0, ox1),
+                slice(int(self.lo_x[ox0]), sx1),
+                slice(int(self.first_stage[oy0]), s1))
+
+
+def _lerp_smem(ring: int, src_cols: int, pixel_bytes: int, span: int
+               ) -> int:
+    """The kernel's shared memory: 1 KB of alignment slack, the mbarriers
+    (256 bytes), ``ring`` stage slots and ``_LERP_H_RING`` H rows of
+    ``src_cols`` pixels each (rounded to 128 bytes), the span's 16-byte
+    taps."""
+    slot = (src_cols * pixel_bytes + 127) // 128 * 128
+    return 1024 + 256 + (ring + _LERP_H_RING) * slot + 16 * span
+
+
+@functools.lru_cache(maxsize=256)
+def _lerp_tables(h: int, w: int, h2: int, w2: int
+                 ) -> tuple[np.ndarray, ...]:
+    """K6's tables: the stages (the source rows some output row reads:
+    lo_y, and lo_y + 1 where w1 != 0, so a downscale skips the rest), each
+    output row's first stage (the index of its lo_y) and weights, each
+    output column's lo_x and weights."""
+    lo_y, w0_y, w1_y = _pass_taps(h, h2)
+    lo_x, w0_x, w1_x = _pass_taps(w, w2)
+    stage_row = np.unique(np.concatenate([lo_y, lo_y[w1_y != 0] + 1])
+                          ).astype(np.int32)
+    first_stage = np.searchsorted(stage_row, lo_y).astype(np.int32)
+    return stage_row, first_stage, w0_y, w1_y, lo_x, w0_x, w1_x
+
+
+@functools.lru_cache(maxsize=256)
+def _lerp_plan(n: int, c: int, h: int, w: int, h2: int, w2: int,
+               itemsize: int, sms: int = 132) -> LerpPlan:
+    """K6's tile and halo plan for an (n, c, h, w) -> (h2, w2) resize of
+    ``itemsize``-byte elements on a card of ``sms`` SMs.
+
+    - Columns: the widest output span whose source columns (its taps and
+      the halo column lo_x + 1 where w1 != 0) fit in a ring slot of
+      ``_LERP_SLOT_BYTES``; ``src_cols`` is the most any span reads.
+    - Rows: a band of output rows reads the stages (``_lerp_tables``) from
+      its first row's lo_y to its last row's last.
+    - Threads: ``_LERP_THREADS`` (the W and H warps), and a producer warp
+      where the stages come by TMA (a pixel of a multiple of 16 bytes: the
+      vector path); blocks an SM from shared memory, at most two (the
+      kernel's register budget); the grid that many on every SM, at most
+      one a tile.
+    - The band: the height whose cost (tiles a block walks, times the
+      elements a tile moves, halo rows included) is least, the taller on
+      a tie.
+    """
+    tables = _lerp_tables(h, w, h2, w2)
+    _, first_stage, _, w1_y, lo_x, _, w1_x = tables
+    last_stage = first_stage + (w1_y != 0)
+    pixel = c * itemsize
+    vec = 16 // itemsize if pixel % 16 == 0 else 1
+    threads = _LERP_THREADS + (32 if vec > 1 else 0)
+
+    hi_x = lo_x + (w1_x != 0)  # the last source column each column reads
+    cols = max(2, _LERP_SLOT_BYTES // pixel)
+    span = w2
+    while True:
+        starts = np.arange(0, w2, span)
+        ends = np.minimum(starts + span, w2) - 1
+        src_cols = int((hi_x[ends] - lo_x[starts] + 1).max())
+        if src_cols <= cols or span == 1:
+            break
+        span = max(1, min(span - 1, span * cols // src_cols))
+    spans = len(starts)
+    smem = _lerp_smem(_LERP_RING, src_cols, pixel, span)
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"lerp_resize: {c} channels of {itemsize} bytes "
+                         f"need {smem} bytes of shared memory a block, "
+                         f"more than the card's {_SMEM_PER_BLOCK}")
+    per_sm = max(1, min(2, _SMEM_PER_SM // (smem + 1024)))
+
+    best = None
+    for band in sorted({-(-h2 // k) for k in range(1, h2 + 1)}):
+        bands = -(-h2 // band)
+        tiles = n * spans * bands
+        grid = min(tiles, sms * per_sm)
+        b0 = np.arange(0, h2, band)
+        b1 = np.minimum(b0 + band, h2) - 1
+        staged = int((last_stage[b1] - first_stage[b0] + 1).max())
+        cost = -(-tiles // grid) * (band * span + staged * src_cols)
+        if best is None or cost <= best[0]:
+            best = (cost, band, bands, tiles, grid)
+    _, band, bands, tiles, grid = best
+    return LerpPlan(span, spans, band, bands, _LERP_RING, src_cols, vec,
+                    threads, grid, smem, tiles, *tables)
+
+
+@device_cache(maxsize=256)
+def _device_lerp_tables(h: int, w: int, h2: int, w2: int,
+                        device: torch.device) -> tuple[torch.Tensor, ...]:
+    """``_lerp_tables`` on the device, uploaded once per shape (outside
+    inference mode, as ``_device_matrix``)."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _lerp_tables(h, w, h2, w2))
+
+
 def _lerp_pass(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
     """One lerp pass along ``dim``: blend in f32, round to x's dtype."""
     n_in = x.shape[dim]
@@ -282,10 +458,15 @@ def _bind_lerp(lib: ctypes.CDLL):
     fn = lib.e3d_lerp_resize
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_lerp(x: torch.Tensor) -> None:
@@ -310,21 +491,26 @@ def _lerp_op(x: torch.Tensor, h2: int, w2: int) -> torch.Tensor:
 
 @_lerp_op.register_kernel("cuda")
 def _lerp_cuda(x, h2, w2):
-    """The launch, counted on ``lerp_resize``; x in another layout is
-    copied into channels-last memory first."""
+    """The launch, counted on ``lerp_resize``, on ``_lerp_plan``'s tiles;
+    x in another layout (or not 16-byte aligned) is copied into fresh
+    channels-last memory first."""
     _check_lerp(x)
     n, c, h, w = x.shape
     x = x.contiguous(memory_format=torch.channels_last)
+    if not aligned16(x):
+        x = x.clone(memory_format=torch.channels_last)
     y = torch.empty((n, c, h2, w2), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
-    rows = (_device_taps(h, h2, x.device) if h2 != h else (None,) * 3)
-    cols = (_device_taps(w, w2, x.device) if w2 != w else (None,) * 3)
-    ptrs = [None if t is None else t.data_ptr() for t in (*rows, *cols)]
+    plan = _lerp_plan(n, c, h, w, h2, w2, x.element_size(),
+                      _sm_count(x.device.index or 0))
+    tables = _device_lerp_tables(h, w, h2, w2, x.device)
     fn = _bind_lerp(cbuild.load(_LERP_LIB))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), n, c, h, w, h2, w2, *ptrs,
-                 _LERP_DTYPES[x.dtype], stream)
+        err = fn(x.data_ptr(), y.data_ptr(), n, c, h, w, h2, w2,
+                 *(t.data_ptr() for t in tables), plan.span, plan.band,
+                 plan.ring, plan.src_cols, plan.threads, plan.grid,
+                 plan.smem, _LERP_DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"lerp_resize launch failed: CUDA error {err}")
     lerp_resize.launches += 1
@@ -353,7 +539,7 @@ def lerp_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("lerp_resize (kernel K6) is not differentiable; "
                            "run it under torch.no_grad() or leave "
-                           "E3D_PALLAS_RESIZE off")
+                           "E3D_PALLAS_RESIZE unset")
     if x.dim() != 4:
         raise ValueError(f"lerp_resize: x has shape {tuple(x.shape)}; the "
                          "kernel takes (N, C, H, W)")

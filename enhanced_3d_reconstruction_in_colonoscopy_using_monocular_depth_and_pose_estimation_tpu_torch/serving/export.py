@@ -9,7 +9,8 @@ artifact. A serving process replays it through ``load_exported``: no
 model code and no re-trace, the same graph of ATen ops and kernel ops
 (``e3d::*``, ``ops/flash_attention.py``, ``ops/resize.py``,
 ``ops/quant.py``) every time. The forward schedule (K1, K4 or K5) and the
-decoder's resize (K6 under ``E3D_PALLAS_RESIZE``) are fixed at export.
+decoder's resize (K6 where ``ops.resize.takes_lerp`` says so: on the card
+by default, being traced without autograd) are fixed at export.
 
 Parameters stay out of the artifact: they are call-time inputs keyed by
 state-dict name, so the checkpoint stays the one source of weights. The
@@ -88,6 +89,16 @@ def _program(model, net_hw: tuple[int, int], out_hw: tuple[int, int]
     return _Program(model, net_hw, out_hw)
 
 
+def lerp_resize_nodes(ep: torch.export.ExportedProgram) -> int:
+    """How many K6 launches (``e3d::lerp_resize`` calls) the exported
+    program holds, in its graph and every submodule's."""
+    target = torch.ops.e3d.lerp_resize.default
+    return sum(node.op == "call_function" and node.target is target
+               for gm in ep.graph_module.modules()
+               if isinstance(gm, torch.fx.GraphModule)
+               for node in gm.graph.nodes)
+
+
 def _params_device(params: Mapping[str, torch.Tensor]) -> torch.device:
     return next(iter(params.values())).device
 
@@ -110,7 +121,6 @@ def export_depth_program(model, params: Mapping[str, torch.Tensor],
     from ..models.dinov2 import VIT_ARCHS
     from ..ops.flash_attention import forward_schedule
     from ..ops.quant import calibrate_scales
-    from ..ops.resize import _PALLAS_RESIZE
 
     h, w = int(frame_hw[0]), int(frame_hw[1])
     net_hw = _lower_bound_hw(h, w, input_size)
@@ -178,7 +188,9 @@ def export_depth_program(model, params: Mapping[str, torch.Tensor],
         # version.
         "forward_schedule": (forward_schedule(int(batch_size) * heads)
                              if device.type == "cuda" else "plain"),
-        "pallas_resize": bool(_PALLAS_RESIZE),
+        # What the traced program holds: its decoder resizes on K6 or not.
+        "pallas_resize": lerp_resize_nodes(ep) > 0,
+        "lerp_resize_nodes": lerp_resize_nodes(ep),
         "artifact_bytes": len(data),
         "param_manifest": {k: [list(v.shape),
                                str(v.dtype).removeprefix("torch.")]

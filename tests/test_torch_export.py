@@ -164,6 +164,7 @@ def test_metadata_sidecar(exported):
     assert on_disk["int8_calib_amax"] is None
     assert on_disk["forward_schedule"] == "plain"
     assert on_disk["pallas_resize"] is False
+    assert on_disk["lerp_resize_nodes"] == 0  # vitt: 32-channel resizes
     jax_keys = {"format", "encoder", "max_depth", "frame_hw", "net_hw",
                 "batch_size", "input_size", "platforms", "dtype",
                 "quant_int8", "quant_scope", "quant_dpt", "token_merge",
@@ -173,6 +174,26 @@ def test_metadata_sidecar(exported):
     manifest = on_disk["param_manifest"]
     assert list(manifest) == list(exported["params"])
     assert manifest["pretrained.pos_embed"] == [[1, 17, 64], "float32"]
+
+
+@pytest.mark.parametrize("knob", [True, False])
+def test_sidecar_counts_the_k6_the_program_holds(knob, monkeypatch):
+    """``lerp_resize_nodes`` counts the K6 calls a traced program holds:
+    two 128-channel resizes under ``E3D_PALLAS_RESIZE=1`` (on the CPU
+    through the plain version), none with the knob unset (the CPU's
+    matmul resize)."""
+    monkeypatch.setattr(tres, "_PALLAS_RESIZE", knob)
+
+    class Up(torch.nn.Module):
+        def forward(self, x):
+            y = tres.resize_align_corners(x, (7, 9), channels_last=False)
+            return tres.resize_align_corners(y, (11, 13), channels_last=False)
+
+    x = torch.zeros((1, 128, 4, 5)).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        ep = torch.export.export(Up(), (x,), strict=False)
+    assert texport.lerp_resize_nodes(ep) == (2 if knob else 0)
 
 
 def test_replay_matches_the_jax_export(exported, tmp_path):

@@ -552,6 +552,11 @@ DPT_RESIZES = [((8, 256, 19, 19), (37, 37)), ((8, 256, 37, 37), (74, 74)),
                ((8, 256, 74, 74), (148, 148)),
                ((8, 256, 148, 148), (296, 296)),
                ((8, 128, 296, 296), (518, 518))]
+# vitg's: the fusion upsamples at 384 channels, the head's at 192.
+VITG_RESIZES = [((8, 384, 19, 19), (37, 37)), ((8, 384, 37, 37), (74, 74)),
+                ((8, 384, 74, 74), (148, 148)),
+                ((8, 384, 148, 148), (296, 296)),
+                ((8, 192, 296, 296), (518, 518))]
 
 
 def _ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -563,12 +568,17 @@ def _ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape,out_hw", DPT_RESIZES + [
+@pytest.mark.parametrize("shape,out_hw", DPT_RESIZES + VITG_RESIZES + [
     ((2, 128, 20, 30), (20, 61)), ((2, 128, 33, 17), (16, 17)),
-    ((1, 128, 9, 9), (4, 25)), ((1, 12, 9, 9), (5, 17))])
+    ((1, 128, 9, 9), (4, 25)), ((2, 384, 33, 40), (16, 77)),
+    ((1, 128, 40, 300), (41, 517)), ((1, 12, 9, 9), (5, 17)),
+    ((2, 12, 33, 9), (16, 20))])
 def test_lerp_resize_matches_plain(shape, out_hw, dtype, card):
-    """K6 on channels-last memory, the decoder's (12 channels take its
-    one-element path), against the plain version."""
+    """K6 on channels-last memory, the decoder's, against the plain
+    version: vitl's and vitg's decoder resizes, one axis unchanged,
+    align-corners downscales (rows no output reads are not staged), 517
+    columns that no span divides, and 12 channels (a pixel of 24 bytes in
+    bf16: the one-element path; 48 in f32: the vector path)."""
     from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
 
     gen = torch.Generator(device=card).manual_seed(shape[2])
@@ -610,6 +620,37 @@ def test_lerp_resize_dispatch_and_refusals(card, monkeypatch):
     assert torch.equal(y, tres.lerp_resize(
         xt.contiguous(memory_format=torch.channels_last), (11, 11)))
     assert _ulp_ok(y, tres.lerp_resize_reference(xt, (11, 11)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_out", [False, True])
+def test_decoder_takes_k6_unless_recorded(opt_out, card, monkeypatch):
+    """A vitl forward on the card launches K6 at its five decoder resizes
+    when autograd does not record it, none when it does (a training
+    forward keeps the matmul resize, K6 having no backward), and none
+    under the opt-out (``E3D_PALLAS_RESIZE=0``, through its module
+    flag)."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
+
+    monkeypatch.setattr(tres, "_PALLAS_RESIZE", False)
+    monkeypatch.setattr(tres, "_NO_PALLAS_RESIZE", opt_out)
+    model = tda.build_depth_model("vitl", device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    img = torch.rand((2, 56, 70, 3), generator=gen, device=card)
+    before = tres.lerp_resize.launches
+    with torch.no_grad():
+        served = model(img)
+    torch.cuda.synchronize()
+    assert tres.lerp_resize.launches == before + (0 if opt_out else 5)
+    before = tres.lerp_resize.launches
+    trained = model(img)
+    trained.float().mean().backward()
+    torch.cuda.synchronize()
+    assert tres.lerp_resize.launches == before
+    assert served.shape == trained.shape == (2, 56, 70)
+    assert bool(served.isfinite().all())
+    grads = [p.grad for p in model.depth_head.parameters()]
+    assert all(g is not None and bool(g.isfinite().all()) for g in grads)
 
 
 @pytest.mark.cuda
