@@ -109,6 +109,16 @@ multiple (vitl 5 a batch, vitg 4; a training forward none):
   (replayed with the knob reset; each sidecar counts the K6 it holds),
   and
   fault 3.1's order: export, then the live program, in one process;
+- the exported training step (phase "export_train"):
+  ``cli.export_model.main --train`` at vitl, 518 px, microbatch 8,
+  accum 3 (seconds, artifact bytes, no weight in it, K1 48 and K2 24
+  nodes in its microbatch program), ``load_exported_train_step``, and one
+  replayed step from the seeded state against the live
+  ``DepthTask.train_step`` from the same state and batch (metrics within
+  1e-4 relative, parameters within 2 lr and at most 1% more of them
+  beyond 1e-6 lr than between two live steps, launches K1 48 and K2 24
+  a microbatch and nothing else, peak memory at most 1.5x the eager
+  step's), then ms a step of each;
 - distillation (phase "distill"): ``cli.train_depth.main`` with a vits
   student and a vitl teacher from a checkpoint the phase saves (518 px,
   microbatch 8, accum 2, two steps): ``Train/train_distill`` logged and
@@ -1620,7 +1630,7 @@ def phase_train_profile(task, state, data) -> None:
     def step():
         task.train_step(state, batch)
 
-    iters = 2
+    iters = 1
     kernels = _profiled(step, iters,
                         f"vitl optimizer step ({ACCUM} microbatches of "
                         f"{BATCH}, clip, AdamW)")
@@ -3455,6 +3465,217 @@ def phase_export(bgr: list, indir: str, tmp: str, smi: str
     return counts
 
 
+# ------------------------------------------------------ export (train)
+
+# Phase "export_train": the depth training step exported by
+# ``cli.export_model.main --train`` at vitl, 518 px, microbatch 8, over
+# EXPORT_TRAIN_ACCUM microbatches (the JAX CLI's default window), under a
+# OneCycle horizon of EXPORT_TRAIN_STEPS (short, so that step 0's
+# learning rates are near their peaks and the parameter check below reads
+# a real update).
+EXPORT_TRAIN_ACCUM = 3
+EXPORT_TRAIN_STEPS = 8
+
+
+def _train_batch(accum: int, seed: int) -> dict:
+    """A seeded (accum, 8, 518, 518, ...) depth batch on the card, a
+    tenth of its depths outside [min_depth, max_depth]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (accum, BATCH, 518, 518)
+    depth = torch.rand(shape, generator=gen, device="cuda") * 17.5 + 0.5
+    bad = torch.rand(shape, generator=gen, device="cuda")
+    depth[bad < 0.05] = 0.0
+    depth[bad > 0.95] = 25.0
+    return {"image": torch.randn((*shape, 3), generator=gen, device="cuda"),
+            "depth": depth[..., None]}
+
+
+def _peak_step(fn) -> tuple:
+    """``fn()``'s result and its peak of allocated device memory (GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _step_ms(fn, iters: int) -> list[float]:
+    """Each of ``iters`` calls of ``fn`` timed on CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _param_gap(task, got: dict, want) -> tuple[float, int, int]:
+    """Parameters ``got`` (name -> tensor) against the model ``want``:
+    the largest distance in units of the parameter's step-0 learning
+    rate, and how many of how many elements lie beyond 1e-6 of it."""
+    lrs = {name: float(table[0]) for name, table in task.lr_table().items()}
+    far = total = 0
+    gap = 0.0
+    for name, p in want.named_parameters():
+        lr = lrs["encoder" if name.startswith("pretrained.") else "decoder"]
+        diff = (got[name].to(p.device) - p.detach()).abs()
+        gap = max(gap, diff.max().item() / lr)
+        far += int((diff > 1e-6 * lr).sum())
+        total += diff.numel()
+    return gap, far, total
+
+
+def phase_export_train(tmp: str, smi: str) -> dict[str, dict[str, int]]:
+    """The exported training step at vitl, 518 px, microbatch 8, accum
+    EXPORT_TRAIN_ACCUM: ``cli.export_model.main --train`` (seconds by
+    program and stage, artifact bytes against vitl's parameter bytes, no
+    weight in it, the kernel nodes of its microbatch program),
+    ``load_exported_train_step`` (seconds), and one replayed step from the
+    seeded state (the CLI's) against the live ``DepthTask.train_step``
+    from the same state and batch: the loss and metrics within 1e-4
+    relative; every parameter within 2 lr of live's, and at most 1% more
+    of them beyond 1e-6 lr than between two live steps from that state
+    (K2 sums dq in another order each run, which moves Adam's first
+    update, about lr g / |g|, wherever |g| is near its noise); the
+    launches counted inside the ops (K1 48 and the default backward 24 a
+    microbatch, nothing else); the peak memory of each step (the
+    replay's at most 1.5x the eager one's); and ms a step on CUDA events:
+    the first replay, then one warm-up and three timed steps of each.
+    Returns the launches by path."""
+    import os
+
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    ex = importlib.import_module(f"{PKG}.serving.export")
+    dt = importlib.import_module(f"{PKG}.train.depth_task")
+    export_model = importlib.import_module(f"{PKG}.cli.export_model")
+
+    accum = EXPORT_TRAIN_ACCUM
+    path = os.path.join(tmp, "vitl_train.pt2")
+    t0 = time.perf_counter()
+    meta, _ = _captured(export_model.main, [
+        "--train", "--encoder", "vitl", "--input-size", "518",
+        "--microbatch", str(BATCH), "--grad-accum", str(accum),
+        "--total-steps", str(EXPORT_TRAIN_STEPS), "-o", path])
+    export_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prog = ex.load_exported_train_step(path)
+    load_s = time.perf_counter() - t0
+    task = dt.DepthTask(encoder="vitl", total_steps=EXPORT_TRAIN_STEPS,
+                        grad_accum=accum, device="cuda")
+    state = task.init_state(0)
+    params = list(state.model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    nodes = meta["kernel_nodes"]
+    want_nodes = {"flash_attn_fwd": 2 * BLOCKS, "flash_attn_bwd": BLOCKS,
+                  "lerp_resize": 0}
+    stages = {name: {k: round(v, 2) for k, v in sec.items()}
+              for name, sec in meta["seconds"].items()}
+    print(f"export_train: cli.export_model --train, vitl 518 px, "
+          f"microbatch {BATCH} x accum {accum} on {meta['platforms']} "
+          f"({meta['forward_schedule']}, backward {meta['backward']}): "
+          f"{export_s:.2f} s through main() (task init, trace, export, "
+          f"save; by program and stage {stages}); "
+          f"load_exported_train_step {load_s:.2f} s; graph nodes "
+          f"{meta['graph_nodes']}, {len(meta['chunks'])} update chunks; "
+          f"kernel nodes of the microbatch program {nodes} (want "
+          f"{want_nodes}); artifact {meta['artifact_bytes']} bytes = "
+          f"{meta['artifact_bytes'] / param_bytes:.5f} of vitl's "
+          f"{param_bytes} parameter bytes; {smi}")
+    shapes = {tuple(p.shape) for p in params}
+    held = [k for ep in prog.programs.values()
+            for k, c in {**ep.constants, **ep.state_dict}.items()
+            if tuple(c.shape) in shapes]
+    if (nodes != want_nodes or meta["artifact_bytes"] >= 0.01 * param_bytes
+            or held or any(ep.example_inputs is not None
+                           for ep in prog.programs.values())):
+        raise AssertionError(f"export_train: kernel nodes {nodes}, "
+                             f"{meta['artifact_bytes']} bytes, tensors "
+                             f"shaped as parameters {held[:3]}")
+    del params
+
+    # One replayed step from the seeded state, its launches and peak; two
+    # live steps from the same seed, each alone on the card.
+    batch = _train_batch(accum, seed=3)
+    _video_counts(fa, rz, zero=True)
+    t0 = time.perf_counter()
+    (state, metrics), replay_gib = _peak_step(lambda: prog(state, batch))
+    first_s = time.perf_counter() - t0
+    counts = {"export_train": _video_counts(fa, rz)}
+    want = _want(K1=2 * BLOCKS * accum, K2=BLOCKS * accum)
+    print(f"  first replayed step: {first_s * 1e3:.1f} ms wall; launches "
+          f"{counts['export_train']} (want {want}); peak "
+          f"{replay_gib:.2f} GiB")
+    if counts["export_train"] != want:
+        raise AssertionError(f"export_train launches "
+                             f"{counts['export_train']}")
+    opt = state.optimizer.optimizer
+    if not all(bool(torch.isfinite(opt.state[p][k]).all())
+               for p in state.optimizer.params
+               for k in ("exp_avg", "exp_avg_sq")):
+        raise AssertionError("export_train: non-finite AdamW moments")
+    replayed = {n: p.detach().cpu() for n, p in
+                state.model.named_parameters()}
+    replay_m = {k: v.item() for k, v in metrics.items()}
+    del state, metrics, opt
+    torch.cuda.empty_cache()
+    state = task.init_state(0)
+    (state, metrics), eager_gib = _peak_step(
+        lambda: task.train_step(state, batch))
+    first_live = {n: p.detach().cpu() for n, p in
+                  state.model.named_parameters()}
+    del state, metrics
+    torch.cuda.empty_cache()
+    state = task.init_state(0)
+    state, metrics = task.train_step(state, batch)
+    live_m = {k: v.item() for k, v in metrics.items()}
+    worst = max(abs(replay_m[k] - v) / abs(v) for k, v in live_m.items())
+    gap, far, total = _param_gap(task, replayed, state.model)
+    live_gap, live_far, _ = _param_gap(task, first_live, state.model)
+    del replayed, first_live
+    print(f"  replay vs live train_step from the same seeded state and "
+          f"batch: metrics max rel. {worst:.2e} (tol 1e-4; replay "
+          f"{replay_m}, live {live_m}); parameters max|d| {gap:.3f} lr "
+          f"(tol 2), {far} of {total} ({far / total:.4%}) beyond 1e-6 lr "
+          f"(tol: the live step against itself, {live_far} "
+          f"({live_far / total:.4%}; max|d| {live_gap:.3f} lr), + 1%); "
+          f"peak replay {replay_gib:.2f} GiB, eager {eager_gib:.2f} GiB "
+          f"({replay_gib / eager_gib:.3f}x, tol 1.5x)")
+    if not (worst <= 1e-4 and gap <= 2.0 * 1.01
+            and far <= live_far + 0.01 * total
+            and replay_gib <= 1.5 * eager_gib):
+        raise AssertionError("export_train: the replay is outside its "
+                             "tolerance of the live step")
+
+    # Steady steps of each, on the live state.
+    replay_ms = _step_ms(lambda: prog(state, batch), 4)
+    eager_ms = _step_ms(lambda: task.train_step(state, batch), 4)
+    frames = accum * BATCH
+    steady = sum(replay_ms[1:]) / 3
+    print(f"  ms a step (CUDA events, after one warm-up): replay "
+          f"{[round(t, 2) for t in replay_ms[1:]]}, eager "
+          f"{[round(t, 2) for t in eager_ms[1:]]}; mean replay "
+          f"{steady:.2f} ({frames * 1e3 / steady:.2f} frames/s), eager "
+          f"{sum(eager_ms[1:]) / 3:.2f} "
+          f"({frames * 3e3 / sum(eager_ms[1:]):.2f} frames/s); first "
+          f"replay {first_s * 1e3:.1f} ms wall against a steady "
+          f"{steady:.2f} ms ({smi})")
+    return counts
+
+
 # ----------------------------------------------------------- distill
 
 def phase_distill(cli_data: list, tmp: str, smi: str) -> dict[str, int]:
@@ -3666,7 +3887,8 @@ def phase_nan(smi: str) -> dict[str, int]:
 
 # Phase "parallel": the train_depth CLI phase's run (its tree, vitl 518
 # px, 16-mixed, gradient checkpointing, global microbatch 8, accum 2, two
-# optimizer steps; one validation, after the second) under each parallel
+# optimizer steps; one validation, after the second, on one of the tree's
+# two validation procedures) under each parallel
 # mode, one process per rank, as torchrun starts them: (label, ranks,
 # overrides, backend). Two ranks share the one card over gloo (NCCL
 # refuses two ranks on one device). FSDP at world 1 shards over a data
@@ -3859,14 +4081,26 @@ def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
     init = da.build_depth_model("vitl", device="cuda", seed=42).state_dict()
     init.pop("pretrained.mask_token")  # unused: no gradient, never moves
     plain_step, plain = _newest_state(plain_ckpt)
+    # The runs validate on the first of the tree's two validation
+    # procedures (a cut of the plain run's validation depth: the runs are
+    # held to its training losses and update, which validation does not
+    # touch, and a two-rank validation batch costs seconds over gloo).
+    root = next(x.split("=", 1)[1] for x in cli_data
+                if x.startswith("dataset.data_dir="))
+    with open(os.path.join(root, "val.txt"), encoding="utf-8") as f:
+        first = f.read().strip().split(",")[0]
+    val_list = os.path.join(root, "val_parallel.txt")
+    with open(val_list, "w", encoding="utf-8") as f:
+        f.write(first)
     overrides = cli_data + [f"trainer.accumulate_grad_batches="
                             f"{TRAIN_CLI_ACCUM}", "++trainer.max_steps=2",
                             "trainer.val_check_interval=1.0",
                             "trainer.log_every_n_steps=1",
-                            "++trainer.distributed=true"]
+                            "++trainer.distributed=true",
+                            f"dataset.val_list={val_list}"]
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
     microbatches = TRAIN_CLI_FRAMES // BATCH
-    val_batches = -(-2 * TRAIN_CLI_FRAMES // BATCH)
+    val_batches = -(-TRAIN_CLI_FRAMES // BATCH)
     want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
                  K6=K6_VITL * val_batches,
                  **{_bwd_name(fa._BWD_FUSED): BLOCKS * microbatches})
@@ -3997,6 +4231,22 @@ def phase_preempt(tmp: str, cli_data: list, smi: str) -> dict[str, int]:
 
 
 
+# Wall seconds by phase, in the order they ran (``_timed``).
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def _timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds kept under ``name`` (a
+    phase that runs twice adds up)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
+        print(f"[phase {name}: {PHASE_SECONDS[name]:.1f} s]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4004,50 +4254,51 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    smi = phase_device()
-    phase_build()
-    phase_sass()
+    smi = _timed("device", phase_device)
+    _timed("build", phase_build)
+    _timed("sass", phase_sass)
     fa = importlib.import_module(f"{PKG}.ops.flash_attention")
-    k1 = phase_forward("K1", "flash_attn_fwd", 336, fa.flash_attention)
-    k4 = phase_forward("K4", "flash_attn_fwd_pair", 181,
-                       fa.flash_attention_pair)
-    k5 = phase_forward(
-        "K5 pipe", "flash_attn_fwd_heads", 254,
+    k1 = _timed("forward", phase_forward, "K1", "flash_attn_fwd", 336,
+                fa.flash_attention)
+    k4 = _timed("forward", phase_forward, "K4", "flash_attn_fwd_pair", 181,
+                fa.flash_attention_pair)
+    k5 = _timed(
+        "forward", phase_forward, "K5 pipe", "flash_attn_fwd_heads", 254,
         lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=True))
-    k5_loop = phase_forward(
-        "K5 hloop", "flash_attn_fwd_heads", 274,
+    k5_loop = _timed(
+        "forward", phase_forward, "K5 hloop", "flash_attn_fwd_heads", 274,
         lambda q, k, v: fa.flash_attention_heads(q, k, v, pipe=False))
-    phase_variant_grads()
-    k2 = phase_bwd(fused=True)
-    k3 = phase_bwd(fused=False)
+    _timed("variant_grads", phase_variant_grads)
+    k2 = _timed("bwd", phase_bwd, fused=True)
+    k3 = _timed("bwd", phase_bwd, fused=False)
     faster = "K2" if k2["ms"] <= k3["ms"] else "K3"
     default = _bwd_name(fa._BWD_DEFAULT == "1")
     print(f"backward with E3D_FLASH_BWD_FUSED unset: {default}; measured "
           f"faster in this run: {faster} (K2 {k2['ms']:.4f} ms, K3 "
           f"{k3['ms']:.4f} ms through the wrapper)")
-    k6 = phase_k6()
-    q1, q2 = phase_quant_kernels(smi)
-    dispatch = phase_dispatch(smi)
+    k6 = _timed("k6", phase_k6)
+    q1, q2 = _timed("quant_kernels", phase_quant_kernels, smi)
+    dispatch = _timed("dispatch", phase_dispatch, smi)
     torch.cuda.empty_cache()
 
     da = importlib.import_module(f"{PKG}.models.depth_anything")
     model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                  seed=0)
     frames = _frames(N_FRAMES, seed=0)
-    serve = phase_serve(model, frames)
-    phase_plain(model, frames[:BATCH])
-    phase_throughput(model, frames, k1["ms"], smi)
-    phase_profile(model, frames)
-    video = phase_video(model, smi)
+    serve = _timed("serve", phase_serve, model, frames)
+    _timed("plain", phase_plain, model, frames[:BATCH])
+    _timed("throughput", phase_throughput, model, frames, k1["ms"], smi)
+    _timed("profile", phase_profile, model, frames)
+    video = _timed("video", phase_video, model, smi)
     del model
     torch.cuda.empty_cache()
 
     data = SeededFrames(TRAIN_MICROBATCHES, VAL_BATCHES, BATCH, seed=1)
-    grads = phase_grads(data)
+    grads = _timed("grads", phase_grads, data)
     torch.cuda.empty_cache()
-    task, state, train = phase_train(data, smi)
-    other = phase_train_other(data)
-    phase_train_profile(task, state, data)
+    task, state, train = _timed("train", phase_train, data, smi)
+    other = _timed("train_other", phase_train_other, data)
+    _timed("train_profile", phase_train_profile, task, state, data)
     del task, state, data
     torch.cuda.empty_cache()
 
@@ -4055,54 +4306,62 @@ def main() -> int:
     import os
     import tempfile
 
-    phase_codecs(smi)
+    _timed("codecs", phase_codecs, smi)
     os.environ["E3D_CONFIG_ROOT"] = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "configs")
     with tempfile.TemporaryDirectory() as tmp:
         model = da.build_depth_model("vitl", max_depth=20.0, device="cuda",
                                      seed=0)
-        infer, paths, bgr, plain, f32 = phase_infer_cli(model, tmp, smi)
-        dials = phase_dials(model, frames, paths, plain, f32, tmp, smi)
+        infer, paths, bgr, plain, f32 = _timed(
+            "infer_cli", phase_infer_cli, model, tmp, smi)
+        dials = _timed("dials", phase_dials, model, frames, paths, plain,
+                       f32, tmp, smi)
         del model
-        served = phase_serve_cli(paths, plain, f32, tmp, smi)
+        served = _timed("serve_cli", phase_serve_cli, paths, plain, f32,
+                        tmp, smi)
         torch.cuda.empty_cache()
-        exported = phase_export(bgr, os.path.join(tmp, "incoming"), tmp,
-                                smi)
+        exported = _timed("export", phase_export, bgr,
+                          os.path.join(tmp, "incoming"), tmp, smi)
         torch.cuda.empty_cache()
-        train_cli, ckpt_dir, cli_data, cli_losses = phase_train_cli(tmp,
-                                                                     smi)
+        exported.update(_timed("export_train", phase_export_train, tmp, smi))
         torch.cuda.empty_cache()
-        distill = phase_distill(cli_data, tmp, smi)
+        train_cli, ckpt_dir, cli_data, cli_losses = _timed(
+            "train_cli", phase_train_cli, tmp, smi)
         torch.cuda.empty_cache()
-        test_cli = phase_test_cli(ckpt_dir, cli_data, tmp, smi)
+        distill = _timed("distill", phase_distill, cli_data, tmp, smi)
         torch.cuda.empty_cache()
-        parallel = phase_parallel(tmp, cli_data, cli_losses, ckpt_dir,
-                                  smi)
-        preempt = phase_preempt(tmp, cli_data, smi)
+        test_cli = _timed("test_cli", phase_test_cli, ckpt_dir, cli_data,
+                          tmp, smi)
         torch.cuda.empty_cache()
-        nan = phase_nan(smi)
+        parallel = _timed("parallel", phase_parallel, tmp, cli_data,
+                          cli_losses, ckpt_dir, smi)
+        preempt = _timed("preempt", phase_preempt, tmp, cli_data, smi)
+        torch.cuda.empty_cache()
+        nan = _timed("nan", phase_nan, smi)
         torch.cuda.empty_cache()
 
         # Reconstruction: (a) fusion and the depth-9 mesh of a synthetic
         # colon; (b) per-frame model clouds and (c) the offline tools on
         # the infer CLI phase's tree.
-        recon_pc = phase_recon(tmp, smi)
+        recon_pc = _timed("recon", phase_recon, tmp, smi)
         torch.cuda.empty_cache()
         infer_root = os.path.join(tmp, "infer_vitl")
-        recon_model = phase_recon_model(infer_root, plain, f32, tmp, smi)
-        phase_recon_tools(infer_root, tmp, smi)
+        recon_model = _timed("recon_model", phase_recon_model, infer_root,
+                             plain, f32, tmp, smi)
+        _timed("recon_tools", phase_recon_tools, infer_root, tmp, smi)
     torch.cuda.empty_cache()
 
     # The giant encoder (vitg) and the pose path.
     with tempfile.TemporaryDirectory() as tmp:
-        vitg_serve = phase_vitg_serve(tmp, smi)
+        vitg_serve = _timed("vitg_serve", phase_vitg_serve, tmp, smi)
     torch.cuda.empty_cache()
-    vitg_grads = phase_grads(SeededFrames(1, 0, BATCH, seed=2), "vitg", 2,
-                             VITG_BLOCKS)
+    vitg_grads = _timed("vitg_grads", phase_grads,
+                        SeededFrames(1, 0, BATCH, seed=2), "vitg", 2,
+                        VITG_BLOCKS)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        pose = phase_pose(tmp, smi)
-    phase_pose_parity()
+        pose = _timed("pose", phase_pose, tmp, smi)
+    _timed("pose_parity", phase_pose_parity)
     # Every path's counts, each read back from its own run: "serve" is
     # DepthServingEngine's phase and "serve_cli" the serve CLI; "grads"
     # the vitl microbatch; "train" the four-step fit on the default
@@ -4164,6 +4423,8 @@ def main() -> int:
     for rec, op in ((k1, "K1"), (k4, "K1"), (k5, "K1"), (k2, "K2"),
                     (k3, "K2"), (k6, "K6"), (q1, "Q1"), (q2, "Q2")):
         rec["op_dispatch_us"] = dispatch[op]
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, q1, q2]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

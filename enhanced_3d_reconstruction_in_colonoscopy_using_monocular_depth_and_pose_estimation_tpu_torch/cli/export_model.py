@@ -14,9 +14,15 @@ Usage:
 ``--int8``, ``--token-merge`` and ``--int8-calib K --calib-frames DIR``
 bake the speed dials into the program; ``--check`` replays the artifact
 against the live program (the frozen-scale one under ``--int8-calib``).
-``--train`` exits with code 2: the port's training step runs eagerly, so
-there is no compile for a saved step to skip (ROADMAP §3, "No train-step
-export").
+
+``--train`` exports the depth training step instead (the JAX package's
+``_export_train``): one optimizer step over ``--grad-accum`` microbatches
+of ``--microbatch`` images at ``--input-size`` square, under the OneCycle
+horizon ``--total-steps``; ``serving.export.load_exported_train_step``
+replays it on a ``DepthTrainState``:
+
+    python -m ...cli.export_model --train --encoder vitl \
+        --grad-accum 3 --microbatch 8 --total-steps 1000 -o train.pt2
 """
 
 from __future__ import annotations
@@ -62,20 +68,29 @@ def main(argv=None) -> dict:
                    help="replay the artifact on random frames and report "
                         "the max deviation from the live program")
     p.add_argument("--train", action="store_true",
-                   help="the JAX package's train-step export; the port "
-                        "refuses it (its training step is eager)")
-    p.add_argument("--grad-accum", type=int, default=3)
-    p.add_argument("--microbatch", type=int, default=8)
-    p.add_argument("--total-steps", type=int, default=1000)
+                   help="export the depth TRAIN step instead of inference; "
+                        "--load-from then gives the weights the trace runs "
+                        "on (seeded random init without it; the artifact "
+                        "holds no weights, so any state of the encoder "
+                        "replays it)")
+    p.add_argument("--grad-accum", type=int, default=3,
+                   help="train export: grad-accum window (microbatches "
+                        "per optimizer step)")
+    p.add_argument("--microbatch", type=int, default=8,
+                   help="train export: per-microbatch batch size")
+    p.add_argument("--total-steps", type=int, default=1000,
+                   help="train export: OneCycle horizon baked into the "
+                        "schedule (must match the resumed run)")
     p.add_argument("--device", default="cuda",
                    help="where the program is traced and runs: cuda "
                         "(default) or cpu")
     args = p.parse_args(argv)
 
     if args.train:
-        p.error("--train: the port's training step runs eagerly and has "
-                "no compile for a saved step to skip (ROADMAP §3, "
-                "divergence \"No train-step export\")")
+        if args.check:
+            p.error("--check replays the inference export; --train has "
+                    "none")
+        return _export_train(args)
     if args.frame_hw is None:
         p.error("--frame-hw is required for inference export")
     if args.int8_calib:
@@ -151,6 +166,33 @@ def _load_calib_frames(dirpath: str, n: int) -> list:
         if len(frames) >= n:
             break
     return frames
+
+
+def _export_train(args) -> dict:
+    """Export the depth TRAIN step (state, batch) -> (state, metrics);
+    returns the sidecar's metadata."""
+    from ..models.convert import load_or_init_depth_model
+    from ..serving.export import export_train_step
+    from ..train.depth_task import DepthTask
+
+    if args.int8 or args.token_merge:
+        raise SystemExit("[export] --train does not compose with the "
+                         "inference speed dials (--int8/--token-merge)")
+    task = DepthTask(encoder=args.encoder, max_depth=args.max_depth,
+                     total_steps=args.total_steps,
+                     grad_accum=args.grad_accum, device=args.device)
+    weights = (load_or_init_depth_model(
+        args.encoder, args.max_depth, args.load_from,
+        device=args.device).state_dict() if args.load_from else None)
+    state = task.init_state(0, pretrained_params=weights)
+    hw = (args.input_size, args.input_size)
+    meta = export_train_step(task, state, args.output,
+                             microbatch=args.microbatch, image_hw=hw)
+    print(f"[export] {args.output}: {meta['artifact_bytes']} bytes, "
+          f"platforms={meta['platforms']}, train step "
+          f"accum{meta['grad_accum']} x bs{meta['microbatch']} @ "
+          f"{meta['image_hw']}")
+    return meta
 
 
 if __name__ == "__main__":

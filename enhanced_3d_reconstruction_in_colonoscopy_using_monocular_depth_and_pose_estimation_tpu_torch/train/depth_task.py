@@ -76,7 +76,8 @@ from ..losses.silog import silog_loss
 from ..models.convert import drop_unused
 from ..models.depth_anything import DepthAnythingV2, build_depth_model
 from ..parallel import mesh as meshlib
-from .optim import DepthOptimizer, make_depth_optimizer, onecycle_schedule
+from .optim import (DepthOptimizer, FunctionalClippedAdamW,
+                    make_depth_optimizer, onecycle_schedule)
 
 
 @dataclasses.dataclass
@@ -424,6 +425,29 @@ class DepthTask:
         out["loss"] = loss_sum * inv_a
         return state, out
 
+    def functional_train_step(self, state: DepthTrainState
+                              ) -> FunctionalDepthStep:
+        """``train_step`` of ``state``'s model and optimizer as a function
+        of tensors (``FunctionalDepthStep``), the step that
+        ``serving.export.export_train_step`` traces. Only the replicated
+        single-card step has one: a task on a mesh of several ranks,
+        under FSDP, TP or the pipeline, with a teacher, or a model with
+        a speed dial raises ValueError naming it."""
+        model = state.model
+        reasons = [what for on, what in (
+            (self.mesh.world > 1, f"a mesh of {self.mesh.world} ranks"),
+            (self.fsdp, "fsdp"), (self.tp is not None, "tensor_parallel"),
+            (self.pipeline_parallel > 1, "pipeline_parallel"),
+            (self.distill_encoder is not None or self.teacher is not None,
+             "a distillation teacher"),
+            (model.pretrained.token_merge > 0, "token_merge"),
+            (model.quant_int8, "quant_int8")) if on]
+        if reasons:
+            raise ValueError("the functional training step is the "
+                             "replicated single-card step; this task has "
+                             + ", ".join(reasons))
+        return FunctionalDepthStep(self, state)
+
     def _sync_grads(self, model: DepthAnythingV2, sharded: bool) -> None:
         """Sum each rank's share of the gradient: over the data group for
         a sharded batch (FSDP's reduce-scatter already did its own
@@ -560,6 +584,128 @@ class DepthTask:
             row["loss"] = silog_loss(pred_i, gt_i, mask)
             rows.append(row)
         return {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
+
+
+class _Microbatch(torch.nn.Module):
+    """One microbatch's loss, metrics and gradients, run under
+    ``functional_call``: the backward, and the blocks it recomputes under
+    gradient checkpointing, read the call-time parameters too."""
+
+    def __init__(self, task: DepthTask, model: DepthAnythingV2):
+        super().__init__()
+        self.model = model
+        object.__setattr__(self, "task", task)
+
+    def forward(self, leaves, image, depth, maxd, scale):
+        loss, metrics = self.task._loss_and_metrics(self.model, image, depth,
+                                                    maxd, train=True)
+        grads = torch.autograd.grad(loss * scale, leaves, allow_unused=True)
+        return loss.detach(), metrics, grads
+
+
+class FunctionalDepthStep:
+    """``DepthTask.train_step`` as functions of tensors, in the two parts
+    that ``serving.export.export_train_step`` traces:
+
+        microbatch(params, image, depth, max_depth, scale, weight, sums)
+            -> (grads, sums)
+        update(params, grads, exp_avg, exp_avg_sq, count, sums, inv_a)
+            -> (params, exp_avg, exp_avg_sq, count + 1, metrics)
+
+    ``params`` and the gradients are lists in ``names`` order (the
+    optimizer's); the moments and the new parameters are one flat tensor
+    per chunk of ``optimizer`` (``train.optim.FunctionalClippedAdamW``);
+    ``count`` is ``state.step`` as an int64 0-dim tensor; ``sums`` are the
+    weighted sums of the loss and the metrics so far (``SUMS`` order);
+    ``scale``, ``weight`` and ``inv_a`` are float32 0-dim tensors. One
+    microbatch (``image`` (mb, H, W, 3), ``depth`` (mb, H, W, 1),
+    ``max_depth`` (mb,)) gives the gradient of its loss times ``scale``
+    and adds its loss and metrics times ``weight`` to ``sums``; the update
+    clips the summed gradients, takes the AdamW step and returns the
+    weighted means. Nothing is mutated; the model's own parameters are
+    never read.
+
+    ``step(params, exp_avg, exp_avg_sq, count, batch)`` (the instance
+    called) composes them over a batch as ``train_step`` does
+    (``run_microbatches``), with the same arithmetic, op for op."""
+
+    SUMS = ("loss", *METRIC_KEYS)
+
+    def __init__(self, task: DepthTask, state: DepthTrainState):
+        self.task = task
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        self.names = [names[id(p)] for p in state.optimizer.params]
+        self.optimizer = FunctionalClippedAdamW(
+            state.optimizer, task._sched_args["total_steps"])
+        self._microbatch = _Microbatch(task, state.model)
+
+    def microbatch(self, params, image, depth, max_depth, scale, weight,
+                   sums):
+        leaves = [p.detach().requires_grad_() for p in params]
+        named = {"model." + n: p for n, p in zip(self.names, leaves)}
+        self._microbatch.model.train()
+        loss, metrics, grads = torch.func.functional_call(
+            self._microbatch, named, (leaves, image, depth, max_depth,
+                                      scale))
+        # ``.grad`` holds each gradient in its parameter's (contiguous)
+        # layout, and the clip's per-tensor norms reduce in layout order;
+        # ``autograd.grad`` hands some back transposed. A parameter the
+        # loss does not reach (``mask_token``) gets zeros, as the eager
+        # optimizer gives it.
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
+                 for g, p in zip(grads, params)]
+        values = (loss, *(metrics[k] for k in METRIC_KEYS))
+        return grads, [s + v * weight for s, v in zip(sums, values)]
+
+    def update(self, params, grads, exp_avg, exp_avg_sq, count, sums,
+               inv_a):
+        new_p, new_m, new_v, _ = self.optimizer.update(
+            params, grads, exp_avg, exp_avg_sq, count)
+        return (new_p, new_m, new_v, count + 1,
+                {k: s * inv_a for k, s in zip(self.SUMS, sums)})
+
+    def __call__(self, params, exp_avg, exp_avg_sq, count, batch):
+        grads, sums, inv_a = run_microbatches(
+            self.microbatch, params, batch, self.task.max_depth)
+        return self.update(params, grads, exp_avg, exp_avg_sq, count, sums,
+                           inv_a)
+
+
+def run_microbatches(microbatch, params, batch: Mapping[str, Any],
+                     max_depth: float):
+    """``train_step``'s loop over the A microbatches of ``batch``
+    (tensors on the parameters' device), each through ``microbatch`` (the
+    signature of ``FunctionalDepthStep.microbatch``): the weights read on
+    the host, a microbatch of weight 0 skipped, the gradients summed in
+    microbatch order as ``.backward()`` sums them into ``.grad``. Returns
+    ``(grads, sums, inv_a)``, the inputs of the update."""
+    image, depth = batch["image"], batch["depth"]
+    accum, mb = image.shape[:2]
+    device = image.device
+    maxd = (batch["max_depth"].float() if "max_depth" in batch else
+            torch.full((accum, mb), max_depth, dtype=torch.float32,
+                       device=device))
+    weights = (torch.as_tensor(batch["weight"]).tolist()
+               if "weight" in batch else [1.0] * accum)
+    inv_a = 1.0 / max(sum(weights), 1e-6)
+
+    def f32(x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=device)
+
+    sums = [f32(0.0) for _ in FunctionalDepthStep.SUMS]
+    grads = None
+    for a, w in enumerate(weights):
+        if w == 0.0:
+            continue
+        g, sums = microbatch(params, image[a], depth[a], maxd[a],
+                             f32(w * inv_a), f32(w), sums)
+        if grads is None:
+            grads = g
+        else:
+            torch._foreach_add_(grads, g)
+    if grads is None:
+        grads = [torch.zeros_like(p) for p in params]
+    return grads, sums, f32(inv_a)
 
 
 def gloo_refusal(device: torch.device, backend: str | None, fsdp: bool,

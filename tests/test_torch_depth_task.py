@@ -184,9 +184,11 @@ def _check_params(jparams, tmodel, undetermined) -> None:
     assert left_out <= MAX_UNDETERMINED * total, (left_out, total)
 
 
-def _step_both(jtask, jstate, ttask, tstate, batch, jgrad):
-    """One step of each task from the JAX state; checks the gradients and
-    the parameters after it, and returns both states and metrics."""
+def _step_both(jtask, jstate, ttask, tstate, batch, jgrad, tstep=None):
+    """One step of each task from the JAX state (the port's through
+    ``tstep(state, batch)``, by default its ``train_step``); checks the
+    gradients and the parameters after it, and returns both states and
+    metrics."""
     _start_from(tstate, jstate)
     grads = _mean_grads(jgrad, jstate.params, ttask, tstate.model,
                         batch["image"], batch["depth"],
@@ -194,7 +196,7 @@ def _step_both(jtask, jstate, ttask, tstate, batch, jgrad):
     with jax.default_matmul_precision("highest"):
         jstate, jm = jtask.train_step(
             jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-    tstate, tm = ttask.train_step(tstate, batch)
+    tstate, tm = (tstep or ttask.train_step)(tstate, batch)
     _check_grads(*grads)
     _check_params(jstate.params, tstate.model, _undetermined(*grads))
     return jstate, jm, tstate, tm

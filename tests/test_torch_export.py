@@ -39,6 +39,7 @@ from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_es
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import quant as tquant
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import resize as tres
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.serving import export as texport
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train.depth_task import DepthTask
 
 FRAME_HW = (60, 60)
 BATCH = 2
@@ -278,14 +279,46 @@ def test_export_model_check_at_a_non_square_grid(tmp_path, capsys):
         assert type(t) is torch.Tensor and not is_fake(t)
 
 
-def test_export_model_train_exits_naming_the_divergence(tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        texport_cli.main(["--device", "cpu", "-o", str(tmp_path / "t"),
-                          "--train"])
-    assert exc.value.code == 2
-    assert 'ROADMAP §3, divergence "No train-step export"' in \
-        capsys.readouterr().err
-    assert not (tmp_path / "t").exists()
+def test_export_model_train_end_to_end(tmp_path, capsys):
+    """``export_model --train --device cpu`` end to end: the training
+    step of the CLI's own task (bf16, its default policy; seeded weights)
+    and its sidecar are written, the JAX CLI's line printed, and the
+    replay on a state of that task takes the live step, bit for bit on
+    the CPU."""
+    out = str(tmp_path / "train.pt2")
+    meta = texport_cli.main(["--train", "--device", "cpu", "--encoder",
+                             "vitt", "--input-size", "28", "--microbatch",
+                             "2", "--grad-accum", "2", "--total-steps", "8",
+                             "-o", out])
+    assert (f"[export] {out}: {meta['artifact_bytes']} bytes, "
+            "platforms=['cpu'], train step accum2 x bs2 @ [28, 28]"
+            in capsys.readouterr().out)
+    with open(out + ".json", encoding="utf-8") as f:
+        assert json.load(f) == meta
+    assert (meta["kind"], meta["dtype"], meta["total_steps"]) == (
+        "depth_train_step", "bfloat16", 8)
+    prog = texport.load_exported_train_step(out)
+    task = DepthTask(encoder="vitt", total_steps=8, grad_accum=2,
+                     device="cpu")
+    replayed, live = task.init_state(0), task.init_state(0)
+    rng = np.random.default_rng(8)
+    batch = {"image": rng.normal(size=(2, 2, 28, 28, 3)).astype(np.float32),
+             "depth": rng.uniform(0.5, 19.0, (2, 2, 28, 28, 1)).astype(
+                 np.float32)}
+    # Exported without them, the step takes no max_depth or weight.
+    with pytest.raises(ValueError, match="fixed-shape.*got max_depth"):
+        prog(replayed, {**batch, "max_depth": np.ones((2, 2), np.float32)})
+    replayed, got = prog(replayed, batch)
+    live, want = task.train_step(live, batch)
+    assert {k: v.item() for k, v in got.items()} == {
+        k: v.item() for k, v in want.items()}
+    got_sd, want_sd = replayed.state_dict(), live.state_dict()
+    for k, v in want_sd["model"].items():
+        assert torch.equal(got_sd["model"][k], v), k
+    for i, s in want_sd["optimizer"]["state"].items():
+        for k, v in s.items():
+            assert torch.equal(got_sd["optimizer"]["state"][i][k], v), (i, k)
+    assert replayed.step == live.step == 1
 
 
 def test_a_fresh_process_replays_the_artifact(exported, tmp_path):
