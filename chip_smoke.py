@@ -1566,7 +1566,7 @@ def phase_train(data, smi: str) -> tuple:
     print(f"  losses {[round(r['train_loss'], 5) for r in train]}, "
           f"val_loss {val[-1]['val_loss']:.5f}; {len(moved)} of "
           f"{len(init)} parameters changed")
-    print(f"  per optimizer step (StepTimer, {smi}): mean "
+    print(f"  per optimizer step (train.step spans, {smi}): mean "
           f"{step_s * 1e3:.1f} ms, p50 {perf['perf/step_time_p50_s'] * 1e3:.1f}"
           f" ms; {frames / (step_s * steps):.2f} frames/s trained; "
           f"{frames / seconds:.2f} frames/s over the whole fit; peak device "
@@ -1987,7 +1987,7 @@ def phase_train_cli(tmp: str, smi: str) -> tuple:
           f"{TRAIN_CLI_ACCUM}: {len(train)} optimizer steps, "
           f"{len(val)} validations of {val_batches // max(len(val), 1)} "
           f"batches, {seconds:.2f} s through main() (fixture excluded); "
-          f"per optimizer step (StepTimer) {perf['perf/step_time_mean_s'] * 1e3:.1f}"
+          f"per optimizer step (train.step spans) {perf['perf/step_time_mean_s'] * 1e3:.1f}"
           f" ms; peak device memory {peak:.2f} GiB; {smi}; losses "
           f"{[round(r['train_loss'], 5) for r in train]}; checkpoint "
           f"entries {saved}; launches {counts} (want {want})")
@@ -2207,7 +2207,7 @@ def phase_pose(tmp: str, smi: str) -> dict[str, int]:
           f"(TF32 off), cycled b1: {len(train)} optimizer steps, "
           f"validation on {POSE_FRAMES - 1} pairs, test on "
           f"{POSE_FRAMES - 1}: {seconds:.2f} s through main() (fixture "
-          f"excluded); per optimizer step (StepTimer, the first with its "
+          f"excluded); per optimizer step (train.step spans, the first with its "
           f"set-up) {step_s * 1e3:.1f} ms, {POSE_BATCH / step_s:.2f} "
           f"pairs/s; peak device memory "
           f"{peak:.2f} GiB; {smi}; losses "
@@ -3742,7 +3742,7 @@ def phase_distill(cli_data: list, tmp: str, smi: str) -> dict[str, int]:
           f"{os.path.basename(teacher_path)}, 518 px, 16-mixed, gradient "
           f"checkpointing, {microbatches} microbatches of {BATCH}, accum "
           f"{TRAIN_CLI_ACCUM}: {len(train)} steps, {seconds:.2f} s through "
-          f"main(); per optimizer step (StepTimer) "
+          f"main(); per optimizer step (train.step spans) "
           f"{perf['perf/step_time_mean_s'] * 1e3:.1f} ms; peak device "
           f"memory {peak:.2f} GiB; {smi}; Train/train_distill {distill}; "
           f"losses {[round(r['train_loss'], 5) for r in train]}; launches "
@@ -4070,7 +4070,7 @@ def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
     finite; TP's peak memory per rank below the world-1 run's (each rank
     holds its slices of the split projections and their moments). Each
     run of ``PARALLEL_REFUSED`` must stop at DepthTask's gloo refusal on
-    every rank. Prints ms a step (``StepTimer``), seconds and peak memory
+    every rank. Prints ms a step (``train.step`` spans), seconds and peak memory
     per rank. Returns the launches by run (summed over its ranks)."""
     import math
     import os
@@ -4135,7 +4135,7 @@ def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
               f"run's: {gap:.3e} in relative norm, max |diff| {worst:.3e} "
               f"(2 lr {2 * lr_sum:.3e}); "
               f"{perf['perf/step_time_mean_s'] * 1e3:.1f} "
-              f"ms a step (StepTimer, rank 0); seconds per rank "
+              f"ms a step (train.step spans, rank 0); seconds per rank "
               f"{[round(r['seconds'], 1) for r in results]}; peak memory "
               f"per rank {[round(r['peak_gib'], 2) for r in results]} GiB; "
               f"K1/K2 per rank {[(c['K1'], c['K2']) for c in counts]} "

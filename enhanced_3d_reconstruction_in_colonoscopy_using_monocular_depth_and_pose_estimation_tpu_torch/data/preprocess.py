@@ -15,7 +15,9 @@ normalises the image (``ops.augment``). As in the JAX package, the
 augmentation touches the image only: hflip and affine never move the
 depth, a property of the reference that is kept, not fixed. Combined
 SimCol + C3VD batches (a ``source`` field) get a per-sample ``max_depth``
-and C3VD depths scaled by 0.1 (mm to cm).
+and C3VD depths scaled by 0.1 (mm to cm). Each call is a
+``train.preprocess`` span in ``core.debug``'s recorder (host time: the
+device work it queues runs on after it).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import debug
 from ..core.device import resolve_device
 from ..ops import augment as aug
 from ..ops.resize import _antialias_matrix, resize_antialias
@@ -89,6 +92,12 @@ class DevicePreprocessor:
         ``max_depths``: (simcol_max, c3vd_max_in_cm) for batches with a
         ``source`` field. ``rows`` (offset, total) places the batch in a
         global batch whose draws it shares (``ops.augment.augment_batch``)."""
+        with debug.span("train.preprocess"):
+            return self._prepare(batch, train, generator, max_depths,
+                                 aug_params, rows)
+
+    def _prepare(self, batch, train, generator, max_depths, aug_params,
+                 rows) -> dict[str, torch.Tensor]:
         image = torch.as_tensor(batch["image"]).to(self.device)
         depth = torch.as_tensor(batch["depth"]).to(self.device)
         if depth.dtype == torch.uint16:

@@ -10,6 +10,7 @@ on the device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import debug
 from ..core.device import device_cache, resolve_device
 from ..core.dtypes import POLICY_BF16
 from ..ops.quant import calibrate_scales, frozen_scales
@@ -235,7 +237,15 @@ class BatchedRunner:
     collective; None turns it on exactly then. True with one visible card
     (or a batch the cards do not divide) raises, naming them. Static
     calibration runs on one card: with ``data_parallel`` None it warns and
-    stays on one, with True it raises."""
+    stays on one, with True it raises.
+
+    Each chunk's call is recorded in ``core.debug``'s recorder as three
+    spans that partition it: ``runner.upload`` (stacking and padding the
+    chunk on the host, and the copy to the device), ``runner.launch``
+    (issuing the forward: resize, normalisation, model, resize back) and
+    ``runner.readback`` (waiting for the card, the copy back, NumPy); and
+    by the counters ``runner.rows`` (rows run, padding included) and
+    ``runner.padded_rows`` (the zero rows padded in)."""
 
     def __init__(self, model: DepthAnythingV2,
                  resolution_hw: tuple[int, int], input_size: int = 518,
@@ -289,19 +299,24 @@ class BatchedRunner:
                 [arr for arr, _ in chunk_bgr_u8(calib_frames[:want],
                                                 batch_size)])
 
-    def _forward(self, arr: np.ndarray) -> torch.Tensor:
-        if len(self.replicas) > 1:
-            # One slice per card, launched in turn (each card runs its
-            # own), read back together.
-            outs = [_run_batched_u8(
-                m, torch.from_numpy(part).to(_model_device(m)), self.net_hw,
-                self.resolution_hw, self.readback_f16)
+    def _upload(self, arr: np.ndarray) -> list[torch.Tensor]:
+        """The chunk on the device: one slice per replica's card."""
+        return [torch.from_numpy(part).to(_model_device(m))
                 for m, part in zip(self.replicas,
                                    np.split(arr, len(self.replicas)))]
-            return torch.cat([o.to(self.device) for o in outs])
-        x = torch.from_numpy(arr).to(self.device)
-        return _run_batched_u8(self.model, x, self.net_hw,
-                               self.resolution_hw, self.readback_f16)
+
+    def _launch(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        """Each replica's forward on its slice, launched in turn (each
+        card runs its own), gathered on the first card."""
+        outs = [_run_batched_u8(m, x, self.net_hw, self.resolution_hw,
+                                self.readback_f16)
+                for m, x in zip(self.replicas, xs)]
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _forward(self, arr: np.ndarray) -> torch.Tensor:
+        return self._launch(self._upload(arr))
 
     def __call__(self, bgr_frames: list[np.ndarray]) -> list[np.ndarray]:
         for f in bgr_frames:
@@ -309,13 +324,20 @@ class BatchedRunner:
                 raise ValueError("BatchedRunner is built for "
                                  f"{self.resolution_hw}; got {f.shape[:2]}")
         outputs: list[np.ndarray] = []
-        for arr, n in chunk_bgr_u8(bgr_frames, self.batch_size):
-            if self.amax is None:
-                depth = self._forward(arr)
-            else:
-                with frozen_scales(self.amax):
-                    depth = self._forward(arr)
-            outputs.extend(depth[:n].cpu().numpy())
+        size = self.batch_size
+        chunks = chunk_bgr_u8(bgr_frames, size)
+        for _ in range(-(-len(bgr_frames) // size)):
+            with debug.span("runner.upload"):
+                arr, n = next(chunks)   # stacked and padded here
+                xs = self._upload(arr)
+            with debug.span("runner.launch"), (
+                    contextlib.nullcontext() if self.amax is None
+                    else frozen_scales(self.amax)):
+                depth = self._launch(xs)
+            with debug.span("runner.readback"):
+                outputs.extend(depth[:n].cpu().numpy())
+            debug.count("runner.rows", size)
+            debug.count("runner.padded_rows", size - n)
         return outputs
 
 

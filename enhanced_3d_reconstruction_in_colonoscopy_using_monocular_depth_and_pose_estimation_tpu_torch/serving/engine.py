@@ -9,6 +9,17 @@
   padded so each resolution has one batch shape;
 - ``close()`` serves everything submitted before it, then stops the thread.
 
+Each frame and batch leaves spans in ``core.debug``'s recorder, stamped on
+``perf_counter_ns``: ``engine.queue`` (``submit()`` to the batcher taking
+the frame) and ``engine.frame`` (``submit()`` to its future resolved),
+both with the frame's number as ``ident``; ``engine.collect`` (the
+batch's first frame taken to the batch closed: full, at the flush
+deadline or at shutdown; ``value`` the rows) and ``engine.batch`` (the
+runner's call and the futures resolved; the parent of the frames' spans
+and of the ``runner.*`` spans), with the batch's number; all under
+``engine.run``, the batcher thread's life. ``stats()`` reads its latency
+quantiles from the ``engine.frame`` spans.
+
 The model's weights go to the device once, when the engine is built.
 
 ``runner`` (optional) replaces the per-resolution ``BatchedRunner``s:
@@ -29,6 +40,7 @@ size.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -37,27 +49,22 @@ from typing import Sequence
 
 import numpy as np
 
+from ..core import debug
 from ..core.device import resolve_device
 from ..models.depth_anything import BatchedRunner
 
 
 class _Stats:
-    """Serving counters + end-to-end latency quantiles.
+    """Serving counters since the last ``reset()`` (``since_ns``, on
+    ``perf_counter_ns``)."""
 
-    Latency = submit() to result-set (queueing + batching delay + device
-    time). A bounded reservoir of the most recent samples keeps memory
-    O(1) on long-running servers.
-    """
-
-    def __init__(self, keep: int = 4096):
+    def __init__(self):
         self._lock = threading.Lock()
-        self._keep = keep
         self.reset()
 
     def reset(self) -> None:
         with self._lock:
-            self._lat: list[float] = []
-            self._pos = 0
+            self.since_ns = time.perf_counter_ns()
             self.submitted = 0
             self.completed = 0
             self.failed = 0
@@ -69,8 +76,8 @@ class _Stats:
         with self._lock:
             self.submitted += n
 
-    def note_batch(self, size: int, latencies_s: list[float],
-                   failed: bool, runner_s: float = 0.0) -> None:
+    def note_batch(self, size: int, failed: bool,
+                   runner_s: float = 0.0) -> None:
         with self._lock:
             self.runner_s += runner_s
             self.batches += 1
@@ -79,17 +86,10 @@ class _Stats:
                 self.failed += size
             else:
                 self.completed += size
-            for v in latencies_s:
-                if len(self._lat) < self._keep:
-                    self._lat.append(v)
-                else:  # ring buffer: most recent window
-                    self._lat[self._pos] = v
-                    self._pos = (self._pos + 1) % self._keep
 
     def snapshot(self) -> dict:
         with self._lock:
-            lat = np.asarray(self._lat, np.float64)
-            out = {
+            return {
                 "submitted": self.submitted,
                 "completed": self.completed,
                 "failed": self.failed,
@@ -98,14 +98,6 @@ class _Stats:
                                     if self.batches else 0.0),
                 "runner_seconds": self.runner_s,
             }
-            if lat.size:
-                out.update(
-                    latency_p50_ms=float(np.percentile(lat, 50) * 1e3),
-                    latency_p95_ms=float(np.percentile(lat, 95) * 1e3),
-                    latency_p99_ms=float(np.percentile(lat, 99) * 1e3),
-                    latency_max_ms=float(lat.max() * 1e3),
-                )
-            return out
 
 
 class DepthServingEngine:
@@ -138,6 +130,9 @@ class DepthServingEngine:
         self._deferred: list = []  # worker-local: other-resolution frames
         self._closed = False
         self._lock = threading.Lock()
+        self._frame_numbers = itertools.count()   # under self._lock
+        self._batch_numbers = itertools.count()   # worker-local
+        self._run_span = debug.span("engine.run")
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -152,23 +147,42 @@ class DepthServingEngine:
             # Counted in the same critical section as the put, so a
             # concurrent stats() reader never sees completed > submitted.
             self._stats.note_submit()
-            self._queue.put((bgr, fut, time.monotonic()))
+            self._queue.put((bgr, fut, time.perf_counter_ns(),
+                             next(self._frame_numbers)))
         return fut
 
     def submit_many(self, frames: Sequence[np.ndarray]) -> list[Future]:
         return [self.submit(f) for f in frames]
 
     def stats(self) -> dict:
-        """Serving counters and end-to-end latency quantiles (ms):
-        submitted/completed/failed, batches, mean batch fill, the wall
-        seconds spent inside the runners (upload, forward, readback;
-        ``runner_seconds``), p50/p95/p99 over a recent-sample
-        reservoir."""
-        return self._stats.snapshot()
+        """Serving counters and end-to-end latency quantiles (ms) since
+        the last ``reset_stats()``: submitted/completed/failed, batches,
+        mean batch fill, the wall seconds spent inside the runners
+        (upload, forward, readback; ``runner_seconds``), and p50/p95/p99
+        and max of ``submit()`` to resolved over this engine's
+        ``engine.frame`` spans that the recorder holds (none while
+        tracing is off)."""
+        out = self._stats.snapshot()
+        since, run_id = self._stats.since_ns, self._run_span.id
+        if run_id is None:
+            return out
+        batches = {s.id for s in debug.spans("engine.batch", since)
+                   if s.parent == run_id}
+        lat = np.asarray([s.ms for s in debug.spans("engine.frame", since)
+                          if s.parent in batches], np.float64)
+        if lat.size:
+            out.update(
+                latency_p50_ms=float(np.percentile(lat, 50)),
+                latency_p95_ms=float(np.percentile(lat, 95)),
+                latency_p99_ms=float(np.percentile(lat, 99)),
+                latency_max_ms=float(lat.max()),
+            )
+        return out
 
     def reset_stats(self) -> None:
-        """Zero the counters and latency reservoir, e.g. after warmup, so
-        first-batch set-up does not sit in the p99 of a measurement."""
+        """Zero the counters and start the latency quantiles afresh, e.g.
+        after warmup, so first-batch set-up does not sit in the p99 of a
+        measurement."""
         self._stats.reset()
 
     def close(self) -> None:
@@ -195,7 +209,9 @@ class DepthServingEngine:
         re-queue would land behind the shutdown sentinel and starve
         minority resolutions). Returns None only once everything,
         including deferred frames, has been served, and [] when a
-        calibration backlog is held and no frame came for max_delay_s."""
+        calibration backlog is held and no frame came for max_delay_s;
+        else ``(batch number, items)``. A frame's ``engine.queue`` span
+        ends when it joins a batch."""
         if self._deferred:
             first = self._deferred.pop(0)
         else:
@@ -206,33 +222,43 @@ class DepthServingEngine:
                 return []
             if first is None:
                 return None
-        items = [first]
-        shape = first[0].shape
-        # deferred frames of the same shape join this batch immediately
-        same = [d for d in self._deferred if d[0].shape == shape]
-        for d in same[: self.batch_size - 1]:
-            self._deferred.remove(d)
-            items.append(d)
-        deadline = time.monotonic() + self.max_delay_s
-        saw_sentinel = False
-        while len(items) < self.batch_size:
-            timeout = deadline - time.monotonic()
-            if timeout <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=timeout)
-            except queue.Empty:
-                break
-            if nxt is None:
-                saw_sentinel = True
-                break
-            if nxt[0].shape != shape:
-                self._deferred.append(nxt)
-                continue
-            items.append(nxt)
+        items = []
+
+        def take(item) -> None:
+            debug.record("engine.queue", item[2], time.perf_counter_ns(),
+                         item[3])
+            items.append(item)
+
+        with debug.span("engine.collect",
+                        next(self._batch_numbers)) as collect:
+            take(first)
+            shape = first[0].shape
+            # deferred frames of the same shape join this batch immediately
+            same = [d for d in self._deferred if d[0].shape == shape]
+            for d in same[: self.batch_size - 1]:
+                self._deferred.remove(d)
+                take(d)
+            deadline = time.perf_counter() + self.max_delay_s
+            saw_sentinel = False
+            while len(items) < self.batch_size:
+                timeout = deadline - time.perf_counter()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    saw_sentinel = True
+                    break
+                if nxt[0].shape != shape:
+                    self._deferred.append(nxt)
+                    continue
+                take(nxt)
+            collect.value = len(items)
         if saw_sentinel:
             self._queue.put(None)  # keep shutdown pending until drained
-        return items
+        return collect.ident, items
 
     def _runner(self, shape: tuple) -> BatchedRunner:
         runner = self._runners.get(shape)
@@ -242,23 +268,30 @@ class DepthServingEngine:
             self._runners[shape] = runner
         return runner
 
-    def _serve_items(self, items, runner=None) -> None:
-        frames = [bgr for bgr, _, _ in items]
-        futures = [fut for _, fut, _ in items]
+    def _serve_items(self, items, runner=None, number=None) -> None:
+        frames = [item[0] for item in items]
         failed = False
-        t0 = time.monotonic()
-        try:
-            depths = (runner or self._runner(frames[0].shape))(frames)
-            for fut, depth in zip(futures, depths):
-                fut.set_result(depth)
-        except Exception as exc:  # the worker keeps serving; waiters see it
-            failed = True
-            for fut in futures:
-                if not fut.done():
-                    fut.set_exception(exc)
-        done = time.monotonic()
-        self._stats.note_batch(len(items), [done - t for _, _, t in items],
-                               failed, done - t0)
+        with debug.span("engine.batch", number) as batch:
+            t0 = time.perf_counter()
+            try:
+                depths = (runner or self._runner(frames[0].shape))(frames)
+                for item, depth in zip(items, depths):
+                    item[1].set_result(depth)
+                    self._frame_done(item, batch.id)
+            except Exception as exc:
+                # The worker keeps serving; the waiters see the error.
+                failed = True
+                for item in items:
+                    if not item[1].done():
+                        item[1].set_exception(exc)
+                        self._frame_done(item, batch.id)
+            runner_s = time.perf_counter() - t0
+        self._stats.note_batch(len(items), failed, runner_s)
+
+    @staticmethod
+    def _frame_done(item, batch_id) -> None:
+        debug.record("engine.frame", item[2], time.perf_counter_ns(),
+                     item[3], batch_id)
 
     def _freeze_and_serve(self, shape: tuple) -> None:
         """Calibrate once on the backlog held for ``shape``, keep the
@@ -269,28 +302,33 @@ class DepthServingEngine:
         try:
             runner = BatchedRunner(
                 self.model, shape[:2], self.input_size, self.batch_size,
-                calib_frames=[bgr for bgr, _, _ in items],
+                calib_frames=[item[0] for item in items],
                 calib_batches=self.calib_batches)
         except Exception as exc:  # the worker keeps serving; waiters see it
-            for _, fut, _ in items:
-                if not fut.done():
-                    fut.set_exception(exc)
-            self._stats.note_batch(len(items), [], True)
+            for item in items:
+                if not item[1].done():
+                    item[1].set_exception(exc)
+            self._stats.note_batch(len(items), True)
             return
         self._runners[shape] = runner
-        self._serve_items(items, runner)
+        self._serve_items(items, runner, next(self._batch_numbers))
 
     def _run(self) -> None:
+        with self._run_span:
+            self._loop()
+
+    def _loop(self) -> None:
         while True:
-            items = self._collect_batch()
-            if not items:
+            got = self._collect_batch()
+            if not got:
                 # Shutdown (None) or an idle queue ([]): calibrate and
                 # serve whatever is held.
                 for shape in list(self._calib_wait):
                     self._freeze_and_serve(shape)
-                if items is None:
+                if got is None:
                     return
                 continue
+            number, items = got
             shape = items[0][0].shape
             if self.calib_batches > 0 and shape not in self._runners:
                 wait = self._calib_wait.setdefault(shape, [])
@@ -300,4 +338,4 @@ class DepthServingEngine:
                         or len(items) < self.batch_size):
                     self._freeze_and_serve(shape)
                 continue
-            self._serve_items(items, self._fixed_runner)
+            self._serve_items(items, self._fixed_runner, number)

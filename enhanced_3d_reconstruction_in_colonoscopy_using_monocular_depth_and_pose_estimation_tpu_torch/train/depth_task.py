@@ -57,6 +57,11 @@ one process per card; each rank's batch holds its loader rows:
 
 Token merging and int8 (``token_merge``, ``quant_int8``) are inference
 dials of the model; the task takes them for its guards.
+
+``train_step`` records in ``core.debug``'s recorder, with the step as
+``ident``: a ``train.microbatch`` span for each chunk's forward and
+backward, and ``train.optimizer`` (on the card also in device time) for
+the gradient sync, the clip, AdamW and the schedule.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..core import debug
 from ..core.device import resolve_device
 from ..core.dtypes import DtypePolicy, POLICY_BF16
 from ..evaluation.depth_metrics import (DEPTH_METRIC_NAMES as METRIC_KEYS,
@@ -410,16 +416,19 @@ class DepthTask:
         for a, w in enumerate(weights):
             if w == 0.0:
                 continue
-            loss, metrics = self._loss_and_metrics(
-                model, image[a], depth[a], maxd[a], distill=True,
-                reduce=reduce, global_b=global_b, train=True)
-            # Gradients of the weighted mean: each chunk's backward adds
-            # w * inv_a times its gradient into .grad.
-            (loss * (w * inv_a)).backward()
-            loss_sum = loss_sum + loss.detach() * w
-            met_sum = {k: met_sum[k] + metrics[k] * w for k in keys}
-        self._sync_grads(model, sharded)
-        optimizer.step(state.step)
+            with debug.span("train.microbatch", state.step):
+                loss, metrics = self._loss_and_metrics(
+                    model, image[a], depth[a], maxd[a], distill=True,
+                    reduce=reduce, global_b=global_b, train=True)
+                # Gradients of the weighted mean: each chunk's backward
+                # adds w * inv_a times its gradient into .grad.
+                (loss * (w * inv_a)).backward()
+                loss_sum = loss_sum + loss.detach() * w
+                met_sum = {k: met_sum[k] + metrics[k] * w for k in keys}
+        with debug.span("train.optimizer", state.step,
+                        device=self.device.type == "cuda"):
+            self._sync_grads(model, sharded)
+            optimizer.step(state.step)
         state.step += 1
         out = {k: v * inv_a for k, v in met_sum.items()}
         out["loss"] = loss_sum * inv_a

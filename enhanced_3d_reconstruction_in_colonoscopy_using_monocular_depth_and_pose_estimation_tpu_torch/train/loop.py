@@ -30,6 +30,14 @@ returns, and ``resume=True`` continues from that step. Under more than
 one rank the ranks agree on the flag at the host-sync boundaries (log and
 validation steps) with a MAX all-reduce, so a signal that reaches one rank
 stops all of them at the same step.
+
+Each step is a ``train.step`` span in ``core.debug``'s recorder (for
+``fit_depth`` the batch's preprocessing and the step, with its logging;
+``ident`` the step), and each wait on the loader for a step's batches a
+``train.loader_wait`` span. The loops log ``perf/step_time_mean_s``,
+``_p50_s``, ``_p95_s`` and ``perf/steps_per_s`` over every step span of
+the epoch (``fit_pose``: of the fit), and ``perf/loader_wait_s``, the
+mean seconds a step waited on its loader.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from typing import Any, Iterable, Mapping
 import torch
 
 from ..core.checkpoint import CheckpointManager, EarlyStopping
-from ..core.debug import StepTimer
+from ..core import debug
 from ..core.logging import MetricLogger, NullLogger
 from ..core.metrics import MetricBank
 from ..core.preempt import PreemptionGuard
@@ -116,6 +124,32 @@ def _handle_preemption(ckpt: CheckpointManager, mesh: Mesh, step: int,
               "restart with trainer.resume=true to continue")
 
 
+_END = object()
+
+
+def _waited(items: Iterable, waits: list):
+    """``items``, each wait for the next one a ``train.loader_wait``
+    span appended to ``waits`` (the last, which finds the end, too)."""
+    it = iter(items)
+    while True:
+        with debug.span("train.loader_wait") as wait:
+            item = next(it, _END)
+        waits.append(wait)
+        if item is _END:
+            return
+        yield item
+
+
+def _perf(steps: list, waits: list) -> dict[str, float]:
+    """The ``perf/`` log of ``steps`` and ``waits`` (spans); {} for no
+    step."""
+    if not steps:
+        return {}
+    out = {f"perf/{k}": v for k, v in debug.step_stats(steps).items()}
+    out["perf/loader_wait_s"] = sum(w.ms for w in waits) * 1e-3 / len(steps)
+    return out
+
+
 def _group_accum(loader: Iterable[dict], accum: int):
     """Group ``accum`` consecutive loader batches (Lightning grad-accum
     semantics); a trailing partial group is yielded too, and
@@ -169,7 +203,6 @@ def fit_depth(
     mesh.barrier()
     gen = torch.Generator().manual_seed(seed + 1)
     lr_table = task.lr_table()
-    timer = StepTimer()
     step = state.step
     log_every = max(1, log_every)
 
@@ -187,28 +220,31 @@ def fit_depth(
                 break
             bank = MetricBank.zeros(bank_keys, task.device)
             t_epoch = time.time()
-            for group in _group_accum(iter(train_loader), accum):
-                n_real = len(group)
-                # One batch the loader could not shard over the ranks
-                # puts the whole group on the replicated path.
-                replicated = any(bool(b.pop("_replicated", False))
-                                 for b in group)
-                prepped = [pre(b, train=True, generator=gen,
-                               max_depths=max_depths,
-                               rows=mesh.loader_rows(len(b["image"]),
-                                                     replicated))
-                           for b in group]
-                # A trailing partial group is padded to ``accum`` chunks
-                # with zero weights; the task skips them.
-                prepped += [prepped[-1]] * (accum - n_real)
-                keys = ("image", "depth") + (("max_depth",) if combined
-                                             else ())
-                batch = {k: torch.stack([p[k] for p in prepped])
-                         for k in keys}
-                batch["weight"] = torch.tensor(
-                    [1.0] * n_real + [0.0] * (accum - n_real))
-                batch["_replicated"] = replicated
-                with timer.step():
+            steps, waits = [], []
+            for group in _waited(_group_accum(iter(train_loader), accum),
+                                 waits):
+                with debug.span("train.step", step) as step_span:
+                    steps.append(step_span)
+                    n_real = len(group)
+                    # One batch the loader could not shard over the ranks
+                    # puts the whole group on the replicated path.
+                    replicated = any(bool(b.pop("_replicated", False))
+                                     for b in group)
+                    prepped = [pre(b, train=True, generator=gen,
+                                   max_depths=max_depths,
+                                   rows=mesh.loader_rows(len(b["image"]),
+                                                         replicated))
+                               for b in group]
+                    # A trailing partial group is padded to ``accum``
+                    # chunks with zero weights; the task skips them.
+                    prepped += [prepped[-1]] * (accum - n_real)
+                    keys = ("image", "depth") + (("max_depth",) if combined
+                                                 else ())
+                    batch = {k: torch.stack([p[k] for p in prepped])
+                             for k in keys}
+                    batch["weight"] = torch.tensor(
+                        [1.0] * n_real + [0.0] * (accum - n_real))
+                    batch["_replicated"] = replicated
                     state, metrics = task.train_step(state, batch)
                     bank = MetricBank.update(bank, metrics)
                     step += 1
@@ -258,16 +294,15 @@ def fit_depth(
                 if max_steps and step >= max_steps:
                     stop = True
                     break
-            summary = timer.summary()
+            perf = _perf(steps, waits)
             print(f"[epoch {epoch}] {time.time() - t_epoch:.1f}s "
-                  f"({summary.get('steps_per_s', 0):.2f} steps/s)")
+                  f"({perf.get('perf/steps_per_s', 0):.2f} steps/s)")
             if float(bank["loss"].count) > 0:
                 logger.log({f"Train/epoch_{k}": v
                             for k, v in MetricBank.compute(bank).items()},
                            step=state.step)
-            if summary:
-                logger.log({f"perf/{k}": v for k, v in summary.items()},
-                           step=state.step)
+            if perf:
+                logger.log(perf, step=state.step)
     mesh.barrier()
     if own_logger:
         logger.close()
@@ -361,19 +396,20 @@ def fit_pose(
         print(f"[fit_pose] resumed from step {state.step}")
     mesh.barrier()
     lr_table = task.lr_table()
-    timer = StepTimer()
     step = state.step
     log_every = max(1, log_every)
     # One loader for the whole fit: it reshuffles per epoch.
     train_loader = datamodule.train_loader()
+    steps, waits = [], []
 
     stop = False
     with PreemptionGuard() as guard:
         for epoch in range(max_epochs):
             if stop:
                 break
-            for batch in train_loader:
-                with timer.step():
+            for batch in _waited(train_loader, waits):
+                with debug.span("train.step", step) as step_span:
+                    steps.append(step_span)
                     state, metrics = task.train_step(state, batch)
                     step += 1
                     boundary = bool(step % log_every == 0
@@ -398,10 +434,9 @@ def fit_pose(
             if _validate_pose(task, state, datamodule, logger, ckpt, mesh,
                               stopper):
                 break
-    summary = timer.summary()
-    if summary:
-        logger.log({f"perf/{k}": v for k, v in summary.items()},
-                   step=state.step)
+    perf = _perf(steps, waits)
+    if perf:
+        logger.log(perf, step=state.step)
     mesh.barrier()
     if own_logger:
         logger.close()

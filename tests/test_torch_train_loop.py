@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core.checkpoint import CheckpointManager, EarlyStopping
-from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core.debug import StepTimer, profile_trace
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core import debug
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core.debug import profile_trace
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core.metrics import MetricBank
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train import loop
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.train.depth_task import DepthTask
@@ -70,7 +71,8 @@ def test_fit_writes_checkpoints_logs_and_stops_at_max_steps(tmp_path):
     assert all(np.isfinite(r["train_loss"]) for r in train)
     assert [r["step"] for r in records if "val_loss" in r] == [2]
     assert any("Train/epoch_loss" in r for r in records)
-    assert any("perf/steps_per_s" in r for r in records)
+    assert any("perf/steps_per_s" in r and "perf/loader_wait_s" in r
+               for r in records)
 
 
 def test_trailing_group_is_padded_with_zero_weights(tmp_path, monkeypatch):
@@ -186,12 +188,17 @@ def test_metric_bank_and_step_timer(tmp_path):
     means = MetricBank.compute(bank)
     assert means["loss"].item() == pytest.approx(3.5)
     assert means["d1"].item() == pytest.approx(1.0)
-    timer = StepTimer(window=2)
-    assert timer.summary() == {}
-    for _ in range(3):
-        with timer.step():
-            pass
-    assert len(timer.times) == 2 and timer.summary()["steps_per_s"] > 0
+    # The loops' step statistics, over every ``train.step`` span given.
+    assert debug.step_stats([]) == {}
+    steps = [debug.Span("train.step", k, start_ns=0, end_ns=ns)
+             for k, ns in enumerate((1_000_000, 2_000_000, 6_000_000))]
+    stats = debug.step_stats(steps)
+    assert stats["step_time_mean_s"] == pytest.approx(3e-3)
+    assert stats["step_time_p50_s"] == pytest.approx(2e-3)
+    assert stats["steps_per_s"] == pytest.approx(1 / 3e-3)
+    with debug.span("train.step") as s:
+        pass
+    assert debug.step_stats([s])["steps_per_s"] > 0
     with profile_trace(str(tmp_path / "trace")) as prof:
         torch.ones(8).sum()
     assert prof.key_averages()
