@@ -10,10 +10,15 @@ and image codecs from ``csrc/host/`` (one compiler per source, in
 parallel), holds each kernel against its plain PyTorch version on the
 card (K1, K2, K3; K4 and K5 also against K1, and their LSE through the
 default backward; K6 at vitl's and vitg's decoder resizes, timed on the
-device alone and with the host's enqueue), and drives the port's paths
-at vitl width with seeded random weights. Every forward that autograd
-does not record takes K6 at the decoder's resizes of 128 channels or a
-multiple (vitl 5 a batch, vitg 4; a training forward none):
+device alone and with the host's enqueue; AUG, the training
+augmentation's two kernels, at one fine-tuning step's 256 images of
+518 px: within 1e-4, the affine's fill pixels exact, timed on the device
+alone, with the host's table and copy, and through
+``DevicePreprocessor``), and drives the port's paths at vitl width with
+seeded random weights. Every forward that autograd does not record takes
+K6 at the decoder's resizes of 128 channels or a multiple (vitl 5 a
+batch, vitg 4; a training forward none); every training microbatch's
+images take AUG's two launches, and no other path launches them:
 
 - serving: vitl DAv2 depth at 518 px, batch 8, through
   ``DepthServingEngine``; checks that the served batches went through K1,
@@ -174,7 +179,7 @@ BATCH = 8
 N_FRAMES = 3 * BATCH
 BLOCKS = 24             # vitl depth: one K1 launch per block per batch
 LIBRARIES = ["flash_attn_fwd", "flash_attn_bwd", "lerp_resize", "quant",
-             "host/jpegcodec", "host/container", "host/pngdec",
+             "augment", "host/jpegcodec", "host/container", "host/pngdec",
              "host/tiffdec", "host/meshing"]
 JAX_PKG = ("enhanced_3d_reconstruction_in_colonoscopy_using_monocular_"
            "depth_and_pose_estimation_tpu")
@@ -669,6 +674,123 @@ def phase_k6() -> dict:
             "vitg": tot["vitg"]}
 
 
+
+# The batched training augmentation (``csrc/augment.cu``, AUG: kernel A's
+# contrast partial sums, then kernel B's gather, jitter and
+# normalisation; two launches a call) at one fine-tuning step's images:
+# the benchmark's vitl-finetune step of 256 frames at 518 px. Against the
+# plain per-image path it may differ by AUG_TOL on the normalised output
+# (the contrast mean and the gray products summed in another order; the
+# card tests say why), and the affine's fill pixels not at all.
+AUG_SHAPE = (256, 518, 518)
+AUG_TOL = 1e-4
+AUG_LAUNCHES = 2
+
+
+def phase_augment(smi: str) -> dict:
+    """AUG against its plain version, ``apply_augment_reference``, on the
+    same card inputs at ``AUG_SHAPE`` (f32, a little outside [0, 1] as
+    after the bicubic resize; the recipe's draws from a seeded CPU
+    generator): within ``AUG_TOL``, the fill pixels exact, bit for bit
+    from call to call, ``AUG_LAUNCHES`` launches a call on its counter.
+    Then the two launches' time on the device alone (the table already on
+    the card) and each kernel's through ``torch.profiler``, the wrapper's
+    with the host's table and copy, the plain path's, the bound (one read
+    and one write of the images), and ``DevicePreprocessor``'s host time
+    on the fine-tuning path (256 uint8 475x475 frames and their depths:
+    upload, resize, augmentation)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    taug = importlib.import_module(f"{PKG}.ops.augment")
+    cbuild = importlib.import_module(f"{PKG}.utils.cbuild")
+    pre = importlib.import_module(f"{PKG}.data.preprocess")
+    b, h, w = AUG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.rand((b, h, w, 3), generator=gen, device="cuda") * 1.1 - 0.05
+    params = taug.draw_augment_params(torch.Generator().manual_seed(18), b,
+                                      (h, w))
+    before = taug.augment_kernel.launches
+    got = taug.augment_kernel(x, params)
+    again = taug.augment_kernel(x, params)
+    torch.cuda.synchronize()
+    launches = taug.augment_kernel.launches - before
+    want = taug.apply_augment_reference(x, params)
+    err = (got - want).abs().max().item()
+    table = taug.augment_tables(params, b, h, w)
+    n = b * taug._TABLE_HEADER
+    rows = torch.from_numpy(table[n:n + b * h].reshape(b, h)).cuda()
+    cols = torch.from_numpy(table[n + b * h:].reshape(b, w)).cuda()
+    fill = (rows[:, :, None] < 0) | (cols[:, None, :] < 0)
+    fill_exact = torch.equal(got[fill], want[fill])
+    repeat = torch.equal(got, again)
+    fill_share = fill.float().mean().item()
+    print(f"AUG {b}x{h}x{w}: max |kernels - plain| {err:.3e} (tolerance "
+          f"{AUG_TOL}); {100 * fill_share:.1f}% of the pixels filled by the "
+          f"affine, equal to the plain path's: {fill_exact}; bit for bit "
+          f"from call to call: {repeat}; {launches} launches in 2 calls")
+    if not (err <= AUG_TOL and fill_exact and repeat
+            and launches == 2 * AUG_LAUNCHES and got.is_contiguous()):
+        raise AssertionError(f"AUG: error {err}, fills exact {fill_exact}, "
+                             f"repeat {repeat}, launches {launches}")
+    del got, again, want, fill, rows, cols
+
+    # The two launches alone, on buffers the wrapper would make.
+    table_d = torch.from_numpy(table).cuda()
+    chunks = -(-h * w // taug._MEAN_CHUNK)
+    partial = torch.empty((b, chunks), device="cuda")
+    out = torch.empty_like(x)
+    fn = taug._bind(cbuild.load("augment"))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        code = fn(x.data_ptr(), out.data_ptr(), table_d.data_ptr(),
+                  partial.data_ptr(), b, h, w, chunks, stream)
+        if code:
+            raise AssertionError(f"AUG launch: CUDA error {code}")
+
+    ms = _device_ms(launch, iters=20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            launch()
+        torch.cuda.synchronize()
+    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+             e.device_time_total / e.count / 1e3
+             for e in prof.key_averages() if e.device_time_total > 0}
+    host_ms = _cuda_ms(lambda: taug.augment_kernel(x, params), iters=10)
+    plain_ms = _cuda_ms(lambda: taug.apply_augment_reference(x, params),
+                        iters=2, warmup=1)
+    bound_ms = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+    del out, partial
+
+    rng = np.random.default_rng(18)
+    batch = {"image": rng.integers(0, 256, (b, *FRAME_HW, 3), np.uint8),
+             "depth": rng.integers(0, 65536, (b, *FRAME_HW), np.uint16)}
+    prep = pre.DevicePreprocessor(size=h, device="cuda")
+    prep_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prep(batch, train=True, aug_params=params)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"AUG {b}x{h}x{w} ({smi}): kernels {ms:.4f} ms device "
+          f"({100 * bound_ms / ms:.1f}% of the bound; by kernel "
+          f"{ {k: round(v, 4) for k, v in split.items()} } ms), "
+          f"{host_ms:.4f} ms with the host's table and copy; plain per-image "
+          f"path {plain_ms:.2f} ms; bound {bound_ms:.4f} ms (bytes: one read "
+          f"and one write of the images); DevicePreprocessor on the "
+          f"fine-tuning path (256 uint8 475x475 frames): host ms "
+          f"{[round(t, 2) for t in prep_ms]} (the first warms the resize)")
+    return {"name": "augment", "route": "cuda",
+            "source": f"{PKG}/csrc/augment.cu",
+            "replaces": f"{JAX_PKG}/ops/augment.py:182",
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "by_kernel_ms": split,
+            "preprocess_host_ms": prep_ms[1:]}
+
 def _frames(n: int, seed: int):
     import numpy as np
 
@@ -961,12 +1083,15 @@ VIDEO_CONFIGS = {
 
 def _video_counts(fa, rz, zero: bool = False) -> dict[str, int]:
     """Every kernel's launch count (zeroed first with ``zero``): the six
-    attention and resize kernels and the int8 passes Q1 and Q2."""
+    attention and resize kernels, the int8 passes Q1 and Q2, and the
+    training augmentation's two kernels (AUG, counted per launch)."""
     quant = importlib.import_module(f"{PKG}.ops.quant")
+    taug = importlib.import_module(f"{PKG}.ops.augment")
     fns = {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_fused,
            "K3": fa.flash_attention_bwd_split, "K4": fa.flash_attention_pair,
            "K5": fa.flash_attention_heads, "K6": rz.lerp_resize,
-           "Q1": quant.quantize_int8, "Q2": quant.dequantize_int32}
+           "Q1": quant.quantize_int8, "Q2": quant.dequantize_int32,
+           "AUG": taug.augment_kernel}
     if zero:
         for fn in fns.values():
             fn.launches = 0
@@ -1154,7 +1279,7 @@ def phase_video(model, smi: str) -> dict[str, dict[str, int]]:
             stats = result["engine"]
             n_b = stats["batches"]
             want = {k: v * n_b for k, v in per_batch.items()}
-            want.update(K2=0, K3=0, Q1=0, Q2=0)
+            want.update(K2=0, K3=0, Q1=0, Q2=0, AUG=0)
             if sorted(depths) != list(range(VIDEO_FRAMES)):
                 raise AssertionError(f"video [{cfg}]: depth maps of frames "
                                      f"{sorted(depths)}")
@@ -1545,7 +1670,7 @@ def phase_train(data, smi: str) -> tuple:
 
     n_mb = TRAIN_MICROBATCHES
     want = _want(K1=2 * BLOCKS * n_mb + BLOCKS * VAL_BATCHES,
-                 K6=K6_VITL * VAL_BATCHES,
+                 K6=K6_VITL * VAL_BATCHES, AUG=AUG_LAUNCHES * n_mb,
                  **{_bwd_name(fused): BLOCKS * n_mb})
     steps = -(-n_mb // ACCUM)
     train = [r for r in records if "train_loss" in r]
@@ -1602,7 +1727,8 @@ def phase_train_other(data) -> dict:
     name = _bwd_name(fused)
     _, state, counts, records, seconds = _fit(data, fused=fused, max_steps=1)
     want = _want(K1=2 * BLOCKS * ACCUM + BLOCKS * VAL_BATCHES,
-                 K6=K6_VITL * VAL_BATCHES, **{name: BLOCKS * ACCUM})
+                 K6=K6_VITL * VAL_BATCHES, AUG=AUG_LAUNCHES * ACCUM,
+                 **{name: BLOCKS * ACCUM})
     loss = next(r["train_loss"] for r in records if "train_loss" in r)
     print(f"train on {name} (the other backward): {state.step} optimizer "
           f"step of {ACCUM} microbatches in {seconds:.2f} s, loss "
@@ -1675,7 +1801,7 @@ def _captured(fn, *args):
 
 def _want(**launches) -> dict[str, int]:
     return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5",
-                                            "K6", "Q1", "Q2")}
+                                            "K6", "Q1", "Q2", "AUG")}
 
 
 def phase_codecs(smi: str) -> None:
@@ -1979,7 +2105,8 @@ def phase_train_cli(tmp: str, smi: str) -> tuple:
     val_batches = len(val) * -(-2 * TRAIN_CLI_FRAMES // BATCH)
     bwd = _bwd_name(fa._BWD_FUSED)
     want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
-                 K6=K6_VITL * val_batches, **{bwd: BLOCKS * microbatches})
+                 K6=K6_VITL * val_batches, AUG=AUG_LAUNCHES * microbatches,
+                 **{bwd: BLOCKS * microbatches})
     saved = sorted(os.listdir(ckpt_dir))
     snapshot = os.path.join(run_dir, ".hydra", "config.yaml")
     print(f"train_depth CLI, vitl 518 px, 16-mixed, gradient "
@@ -3737,6 +3864,7 @@ def phase_distill(cli_data: list, tmp: str, smi: str) -> dict[str, int]:
     # vitl's; the student alone validates (vits: no K6).
     want = _want(K1=(BLOCKS + 2 * student) * microbatches
                  + student * val_batches, K6=K6_VITL * microbatches,
+                 AUG=AUG_LAUNCHES * microbatches,
                  **{_bwd_name(fa._BWD_FUSED): student * microbatches})
     print(f"distill: train_depth, vits student, vitl teacher from "
           f"{os.path.basename(teacher_path)}, 518 px, 16-mixed, gradient "
@@ -4102,7 +4230,7 @@ def phase_parallel(tmp: str, cli_data: list, plain_losses: list,
     microbatches = TRAIN_CLI_FRAMES // BATCH
     val_batches = -(-TRAIN_CLI_FRAMES // BATCH)
     want = _want(K1=2 * BLOCKS * microbatches + BLOCKS * val_batches,
-                 K6=K6_VITL * val_batches,
+                 K6=K6_VITL * val_batches, AUG=AUG_LAUNCHES * microbatches,
                  **{_bwd_name(fa._BWD_FUSED): BLOCKS * microbatches})
     by_run, peaks = {}, {}
     for label, ranks, extra, backend in PARALLEL_RUNS:
@@ -4277,6 +4405,7 @@ def main() -> int:
           f"faster in this run: {faster} (K2 {k2['ms']:.4f} ms, K3 "
           f"{k3['ms']:.4f} ms through the wrapper)")
     k6 = _timed("k6", phase_k6)
+    aug = _timed("augment", phase_augment, smi)
     q1, q2 = _timed("quant_kernels", phase_quant_kernels, smi)
     dispatch = _timed("dispatch", phase_dispatch, smi)
     torch.cuda.empty_cache()
@@ -4411,8 +4540,15 @@ def main() -> int:
             "video": sum(c[name] for c in video.values())}
         rec["launches_by_path"].update(
             {path: c[name] for path, c in dials.items()})
+    # AUG: the fine-tuning path (phase "train"), two launches a
+    # microbatch; no serving path augments.
+    aug["launches"] = train["AUG"]
+    aug["launches_by_path"] = {
+        "video": sum(c["AUG"] for c in video.values()),
+        "dials": sum(c["AUG"] for c in dials.values())}
     for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
-                      ("K5", k5), ("K6", k6), ("Q1", q1), ("Q2", q2)):
+                      ("K5", k5), ("K6", k6), ("Q1", q1), ("Q2", q2),
+                      ("AUG", aug)):
         rec["launches_by_path"].update(
             {path: counts[name] for path, counts in by_path.items()})
     for rec, name in ((k1, "K1"), (k6, "K6")):
@@ -4425,7 +4561,7 @@ def main() -> int:
         rec["op_dispatch_us"] = dispatch[op]
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, q1, q2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, q1, q2, aug]}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

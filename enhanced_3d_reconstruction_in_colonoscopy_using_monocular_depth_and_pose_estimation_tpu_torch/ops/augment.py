@@ -10,16 +10,29 @@ image only, a property of the reference kept as it is.
 The random draws are made in one place, ``draw_augment_params``, from a
 ``torch.Generator`` on the CPU (so no draw waits for the card), and the
 ops take them as explicit values. A test can therefore feed the factors
-that another framework's random stream drew. The ops run per image, on
-whatever device the images lie on.
+that another framework's random stream drew.
+
+``apply_augment`` takes one of two paths, by the images' device alone:
+images on a CUDA device go through the batched kernels of
+``csrc/augment.cu`` (``augment_kernel``: one table of the draws copied to
+the card, two launches a call, whatever the batch; it takes float32 and
+refuses any other dtype); images on the CPU through the plain version,
+``apply_augment_reference``, which runs the ops image by image and is
+what the CPU tests hold against the JAX package and the card tests hold
+the kernels against. Each call counts its rows on ``core.debug``'s
+counter ``augment.kernel_rows`` or ``augment.plain_rows``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..core import debug
+from ..utils import cbuild
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -193,10 +206,9 @@ def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
     return (img - mean) / std
 
 
-def apply_augment(images: torch.Tensor, params: AugmentParams
-                  ) -> torch.Tensor:
-    """images: (B, H, W, 3) in [0, 1]. Flip, colour jitter and affine per
-    image with the given draws, then ImageNet normalisation."""
+def apply_augment_reference(images: torch.Tensor, params: AugmentParams
+                            ) -> torch.Tensor:
+    """Plain version of ``apply_augment``: the ops image by image."""
     flips = params.flip.tolist()
     factors = params.factors.tolist()
     orders = params.order.tolist()
@@ -209,6 +221,125 @@ def apply_augment(images: torch.Tensor, params: AugmentParams
                             params.scale[i].item())
         out.append(img)
     return normalize_imagenet(torch.stack(out))
+
+
+# ------------------------------ batched kernels -----------------------------
+
+_LIB = "augment"
+# The kernels' table: int32 words of one image's draws (order, then the
+# factors as float bits; ``csrc/augment.cu``'s kHeader), and the pixels
+# of kernel A's chunks (kMeanTiles x kTile), one contrast partial each.
+_TABLE_HEADER = 16
+_MEAN_CHUNK = 8 * 1024
+
+
+def _affine_axes(n: int, shift: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """``random_affine``'s source index along an axis of ``n`` pixels, for
+    every image at once: (len(shift), n) int32, -1 where the affine fills.
+    The same f32 arithmetic, true division and round half to even, so the
+    same indices."""
+    f32 = np.float32
+    c = f32((n - 1) * 0.5)
+    src = np.round((np.arange(n, dtype=f32) - c - shift[:, None])
+                   / scale[:, None] + c).astype(np.int64)
+    return np.where((src >= 0) & (src < n), src, -1).astype(np.int32)
+
+
+def augment_tables(params: AugmentParams, b: int, h: int, w: int
+                   ) -> np.ndarray:
+    """The kernels' table of one call of ``b`` images (layout in
+    ``csrc/augment.cu``): per image the order and the factors as the plain
+    version rounds them to f32 (brightness, contrast, 1 - contrast,
+    saturation, 1 - saturation, hue, each from the float64 value, as
+    PyTorch rounds a Python scalar); each output row's source row; each
+    output column's source column, the flip folded in (column W - 1 - c of
+    the unflipped image); -1 where the affine fills."""
+    if any(p.shape[0] != b for p in params):
+        raise ValueError(f"apply_augment: {b} images, but draws of shapes "
+                         f"{[tuple(p.shape) for p in params]}")
+    order = params.order.cpu().numpy()
+    if not (np.sort(order, axis=1) == np.arange(4)).all():
+        raise ValueError("apply_augment: each row of params.order must be "
+                         "a permutation of 0..3")
+    f = params.factors.cpu().numpy().astype(np.float64)
+    head = np.zeros((b, _TABLE_HEADER), np.int32)
+    head[:, :4] = order
+    head[:, 4:10] = np.stack(
+        [f[:, 0], f[:, 1], 1.0 - f[:, 1], f[:, 2], 1.0 - f[:, 2], f[:, 3]],
+        axis=1).astype(np.float32).view(np.int32)
+    shift = params.translate.cpu().numpy().astype(np.float32)
+    scale = params.scale.cpu().numpy().astype(np.float32)
+    rows = _affine_axes(h, shift[:, 1], scale)
+    cols = _affine_axes(w, shift[:, 0], scale)
+    flip = params.flip.cpu().numpy().astype(bool)[:, None]
+    cols = np.where(flip & (cols >= 0), w - 1 - cols, cols)
+    return np.concatenate([head.ravel(), rows.ravel(), cols.ravel()])
+
+
+def takes_kernel(images: torch.Tensor) -> bool:
+    """Whether ``apply_augment`` runs ``images`` through the batched
+    kernels: whether they are on a CUDA device."""
+    return images.device.type == "cuda"
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.e3d_augment
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def augment_kernel(images: torch.Tensor, params: AugmentParams
+                   ) -> torch.Tensor:
+    """``apply_augment`` by the kernels of ``csrc/augment.cu`` on (B, H, W,
+    3) float32 CUDA ``images``: the draws' table copied to the card in one
+    piece, then two launches (the contrast means' partial sums, then the
+    gather, jitter and normalisation), both counted on
+    ``augment_kernel.launches``. Returns (B, H, W, 3) float32,
+    contiguous. Raises ValueError on images of another dtype, shape or
+    device."""
+    if not takes_kernel(images) or images.dtype != torch.float32 \
+            or images.dim() != 4 or images.shape[3] != 3:
+        raise ValueError(f"augment_kernel: images are {images.dtype} of "
+                         f"shape {tuple(images.shape)} on {images.device}; "
+                         "the kernels take (B, H, W, 3) float32 on a CUDA "
+                         "device")
+    b, h, w, _ = images.shape
+    images = images.contiguous()
+    table = torch.from_numpy(augment_tables(params, b, h, w)).to(
+        images.device)
+    chunks = -(-h * w // _MEAN_CHUNK)
+    partial = torch.empty((b, chunks), dtype=torch.float32,
+                          device=images.device)
+    out = torch.empty_like(images)
+    fn = _bind(cbuild.load(_LIB))
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = fn(images.data_ptr(), out.data_ptr(), table.data_ptr(),
+                 partial.data_ptr(), b, h, w, chunks, stream)
+    if err:
+        raise RuntimeError(f"augment launch failed: CUDA error {err}")
+    augment_kernel.launches += 2
+    return out
+
+
+augment_kernel.launches = 0
+
+
+def apply_augment(images: torch.Tensor, params: AugmentParams
+                  ) -> torch.Tensor:
+    """images: (B, H, W, 3) in [0, 1]. Flip, colour jitter and affine per
+    image with the given draws, then ImageNet normalisation: by the
+    batched kernels on a CUDA device (float32 only), by the plain version
+    on the CPU."""
+    if takes_kernel(images):
+        out = augment_kernel(images, params)
+        debug.count("augment.kernel_rows", images.shape[0])
+        return out
+    debug.count("augment.plain_rows", images.shape[0])
+    return apply_augment_reference(images, params)
 
 
 def augment_batch(images: torch.Tensor, gen: torch.Generator,

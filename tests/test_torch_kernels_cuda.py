@@ -15,14 +15,22 @@ where the plain version rounds the normalised ones, so a few bf16 ulps at
 that consume them, the plain backward computes in f32 from the same bf16
 inputs: their largest difference may be 2e-2 of the largest |gradient|.
 The int8 passes Q1 and Q2 and the int8 conv's int32 accumulator are
-exact: they must equal their plain versions bit for bit.
+exact: they must equal their plain versions bit for bit. The batched
+augmentation differs from its plain version only in the order of two sums
+(1e-4 on the normalised output; ``_check_augment`` says why), and its
+filled pixels are exact.
 """
+
+import itertools
+from time import perf_counter_ns
 
 import pytest
 import torch
 
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core import debug
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.models import depth_anything as tda
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import attention as tattn
+from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import augment as taug
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import flash_attention as fa
 from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference)
@@ -914,6 +922,127 @@ def test_speed_dials_on_card(card):
     assert flash_attention.launches - k1 == 2 * 12
     with pytest.raises(RuntimeError, match="no backward"):
         model(x)
+
+
+# --------------------------------- the batched training augmentation
+
+AUG_TOL = 1e-4
+
+
+def _draws(seed, n, hw, scale_range=(0.1, 0.9)):
+    """The fine-tuning recipe's augmentation draws for ``n`` images
+    (``scale_range`` replaced), from a seeded CPU generator."""
+    return taug.draw_augment_params(
+        torch.Generator().manual_seed(seed), n, hw,
+        taug.AugmentConfig(scale_range=scale_range))
+
+
+def _check_augment(images, params):
+    """The kernels against the plain per-image path on the same card.
+
+    Tolerance ``AUG_TOL`` (1e-4) on the normalised output. Every multiply,
+    add and divide of the kernels is an IEEE-rounded op of its own, as in
+    the plain chain of PyTorch ops (no FMA contraction, no approximate
+    divide), so the two differ only where sums are taken in another order:
+    the contrast mean (a fixed-order sum of per-chunk partials against
+    PyTorch's reduction over the flipped image) and a pixel's three gray
+    products. A mean a few float32 ulps apart moves a pixel by at most
+    |1 - contrast| <= 0.2 times that, and the HSV round trip is continuous
+    in its input, so the outputs stay within a few ulps of 1 / std (about
+    1e-6); 1e-4 leaves room above that and stays far below the 2e-4 that
+    the plain path keeps from the JAX package. A filled pixel involves no
+    sum at all and must be exact: (0 - mean) / std."""
+    b, h, w, _ = images.shape
+    before = taug.augment_kernel.launches
+    got = taug.augment_kernel(images, params)
+    torch.cuda.synchronize()
+    assert taug.augment_kernel.launches == before + 2
+    want = taug.apply_augment_reference(images, params)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert got.is_contiguous()
+    assert (got - want).abs().max().item() <= AUG_TOL
+    table = taug.augment_tables(params, b, h, w)
+    n = b * taug._TABLE_HEADER
+    rows = torch.from_numpy(table[n:n + b * h].reshape(b, h)).to(images.device)
+    cols = torch.from_numpy(table[n + b * h:].reshape(b, w)).to(images.device)
+    fill = (rows[:, :, None] < 0) | (cols[:, None, :] < 0)
+    assert torch.equal(got[fill], want[fill])
+    return got, fill
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(64, 518, 518), (7, 40, 50), (5, 1, 37)],
+                         ids=["finetune", "40x50", "1-row"])
+def test_augment_kernels_match_plain(b, h, w, card):
+    gen = torch.Generator(device=card).manual_seed(h * w)
+    # As after the bicubic resize: a little outside [0, 1].
+    images = torch.rand((b, h, w, 3), generator=gen, device=card) * 1.1 - 0.05
+    _check_augment(images, _draws(3170000000 + h * w, b, (h, w)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flip", [True, False], ids=["all-flip", "no-flip"])
+def test_augment_kernels_every_colour_order(flip, card):
+    """The 24 orders of the four colour ops, one image each."""
+    params = _draws(11, 24, (48, 56))
+    params = params._replace(
+        flip=torch.full((24,), flip),
+        order=torch.tensor(list(itertools.permutations(range(4)))))
+    gen = torch.Generator(device=card).manual_seed(12)
+    images = torch.rand((24, 48, 56, 3), generator=gen, device=card)
+    _check_augment(images, params)
+
+
+@pytest.mark.cuda
+def test_augment_kernels_mostly_fill(card):
+    """Scale 0.1: about 99% of each output is the affine's fill."""
+    params = _draws(13, 16, (96, 80), scale_range=(0.1, 0.1))
+    gen = torch.Generator(device=card).manual_seed(14)
+    images = torch.rand((16, 96, 80, 3), generator=gen, device=card)
+    _, fill = _check_augment(images, params)
+    assert fill.float().mean().item() > 0.95
+
+
+@pytest.mark.cuda
+def test_augment_kernels_repeat_bit_for_bit(card):
+    params = _draws(15, 32, (518, 518))
+    gen = torch.Generator(device=card).manual_seed(16)
+    images = torch.rand((32, 518, 518, 3), generator=gen, device=card)
+    first = taug.augment_kernel(images, params)
+    again = taug.augment_kernel(images, params)
+    assert torch.equal(first, again)
+    # An image's mean does not depend on the batch it comes in.
+    alone = taug.augment_kernel(images[5:6], taug.AugmentParams(
+        *(p[5:6] for p in params)))
+    assert torch.equal(alone[0], first[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_augment_dispatch_by_dtype(dtype, card):
+    """Images on the card take the kernels whatever their dtype: float32
+    runs them (two launches, its rows counted on ``augment.kernel_rows``);
+    any other dtype is refused with a ValueError before any launch, and
+    no row is counted on either path."""
+    params = _draws(17, 3, (20, 26))
+    images = torch.rand((3, 20, 26, 3), device=card).to(dtype)
+    assert taug.takes_kernel(images)
+    t0 = perf_counter_ns()
+    before = taug.augment_kernel.launches
+    kernel = dtype == torch.float32
+    if kernel:
+        got = taug.apply_augment(images, params)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+    else:
+        with pytest.raises(ValueError, match="float32"):
+            taug.apply_augment(images, params)
+    assert taug.augment_kernel.launches == before + 2 * kernel
+    counted = {name: sum(c.n for c in debug.counts(name, t0))
+               for name in ("augment.kernel_rows", "augment.plain_rows")}
+    assert counted == {"augment.kernel_rows": 3 * kernel,
+                       "augment.plain_rows": 0}
 
 
 # ------------------------------------------- the kernels as torch ops

@@ -14,6 +14,8 @@ colour ops 1e-5 on [0, 1] pixels (the HSV round trip); preprocessed images
 2e-4 after the ImageNet division by std ~0.22.
 """
 
+from time import perf_counter_ns
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -277,6 +279,98 @@ def test_draws_follow_the_config():
     again = taug.draw_augment_params(torch.Generator().manual_seed(0), 64,
                                      (40, 50), cfg)
     assert all(torch.equal(a, b) for a, b in zip(p, again))
+
+
+def _coordinate_image(h, w):
+    """An image whose pixel (y, x) holds (y, x, 1): what an affine makes of
+    it names each output pixel's source, and 0 in the last channel a
+    fill."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    return torch.from_numpy(np.stack([yy, xx, np.ones_like(yy)],
+                                     -1).astype(np.float32))
+
+
+@pytest.mark.parametrize("hw,scale_range", [((40, 50), (0.1, 0.9)),
+                                            ((1, 37), (0.1, 0.9)),
+                                            ((75, 64), (0.1, 0.1)),
+                                            ((518, 518), (0.1, 0.9))],
+                         ids=["40x50", "1-row", "scale-0.1", "518"])
+def test_kernel_tables_match_random_affine(hw, scale_range):
+    """The batched kernels' host table against the per-image path, bit for
+    bit: each output pixel's source row and (flip folded in) column, and
+    which pixels the affine fills, as ``hflip`` then ``random_affine`` move
+    a coordinate image; and the factors as the plain ops round them."""
+    h, w = hw
+    cfg = taug.AugmentConfig(scale_range=scale_range)
+    gen = torch.Generator().manual_seed(sum(hw))
+    params = taug.draw_augment_params(gen, 12, hw, cfg)
+    params = params._replace(flip=torch.arange(12) % 3 == 0)
+    table = taug.augment_tables(params, 12, h, w)
+    n = 12 * taug._TABLE_HEADER
+    assert table.dtype == np.int32 and table.shape == (n + 12 * (h + w),)
+    head = table[:n].reshape(12, -1)
+    rows = table[n:n + 12 * h].reshape(12, h)
+    cols = table[n + 12 * h:].reshape(12, w)
+    coords = _coordinate_image(h, w)
+    for i in range(12):
+        img = coords.flip(1) if params.flip[i] else coords
+        moved = taug.random_affine(img, params.translate[i].tolist(),
+                                   params.scale[i].item()).numpy()
+        kept = (rows[i][:, None] >= 0) & (cols[i][None, :] >= 0)
+        np.testing.assert_array_equal(moved[..., 2] == 1, kept)
+        assert kept.any() and not (moved[~kept] != 0).any()
+        np.testing.assert_array_equal(
+            moved[..., 0][kept], np.broadcast_to(rows[i][:, None],
+                                                 (h, w))[kept])
+        np.testing.assert_array_equal(
+            moved[..., 1][kept], np.broadcast_to(cols[i][None, :],
+                                                 (h, w))[kept])
+    np.testing.assert_array_equal(head[:, :4], params.order.numpy())
+    f = params.factors.double()
+    want = torch.stack([f[:, 0], f[:, 1], 1 - f[:, 1], f[:, 2], 1 - f[:, 2],
+                        f[:, 3]], 1).float().numpy()
+    np.testing.assert_array_equal(head[:, 4:10].view(np.float32), want)
+    assert not head[:, 10:].any()
+
+
+def test_kernel_tables_refuse_draws_they_cannot_hold():
+    """An order that is no permutation of the four ops, and draws for
+    another number of images than the batch's, are refused before any
+    launch."""
+    params = taug.draw_augment_params(torch.Generator().manual_seed(1), 2,
+                                      (8, 8))
+    bad = params._replace(order=torch.tensor([[0, 1, 2, 3], [0, 0, 2, 3]]))
+    with pytest.raises(ValueError, match="permutation"):
+        taug.augment_tables(bad, 2, 8, 8)
+    with pytest.raises(ValueError, match="3 images"):
+        taug.augment_tables(params, 3, 8, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cpu_images_take_the_plain_path_and_count_their_rows(dtype):
+    """The dispatch rule: images on a CUDA device take the kernels; CPU
+    images, whatever their dtype, go through the plain version, counted
+    on ``augment.plain_rows`` and not on ``augment.kernel_rows``, and the
+    kernels' entry point refuses them."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.core import debug
+
+    imgs = torch.from_numpy(_images(6, (5, 20, 26, 3))).to(dtype)
+    params = taug.draw_augment_params(torch.Generator().manual_seed(2), 5,
+                                      (20, 26))
+    assert not taug.takes_kernel(imgs)
+    t0 = perf_counter_ns()
+    launches = taug.augment_kernel.launches
+    got = taug.apply_augment(imgs, params)
+    assert torch.equal(got, taug.apply_augment_reference(imgs, params))
+    assert taug.augment_kernel.launches == launches
+
+    def rows(name):
+        return sum(c.n for c in debug.counts(name, t0))
+
+    assert rows("augment.plain_rows") == 5
+    assert rows("augment.kernel_rows") == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        taug.augment_kernel(imgs, params)
 
 
 # ---------------------------------------------------------- preprocessor
