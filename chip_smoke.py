@@ -146,6 +146,15 @@ images take AUG's two launches, and no other path launches them:
 - preemption (phase "preempt"): a train_depth process at vitl gets
   SIGTERM once it logs its first step, exits 0 with ``latest/`` and
   ``preempted`` 1, and ``trainer.resume=true`` reaches ``max_steps``.
+- Video Depth Anything (phase "vda"): ``e3d::temporal_attn`` timed on
+  the device alone at VDA-L's four motion-module shapes; one 32-frame
+  window at 518 x 644 (C3VD's 1080 x 1350 frames) through ``ClipRunner``
+  against the same model in f32 with the plain attention and TF32 off
+  (the benchmark's ``map_rel_err`` within 0.14; K1 24, K6 5 and TA 8 a
+  window); the engine's clip mode on two interleaved 60-frame streams
+  (six windows, every map finite and non-negative); and
+  ``cli.video_depth.main --model vda`` on a 40-frame AVI (two windows).
+  Every other path's counts hold TA, the temporal attention op, to 0.
 
 After the build it prints the compiler's register and spill report (and
 any C75xx note, such as a serialized ``wgmma`` chain, by kernel) and,
@@ -1083,15 +1092,17 @@ VIDEO_CONFIGS = {
 
 def _video_counts(fa, rz, zero: bool = False) -> dict[str, int]:
     """Every kernel's launch count (zeroed first with ``zero``): the six
-    attention and resize kernels, the int8 passes Q1 and Q2, and the
-    training augmentation's two kernels (AUG, counted per launch)."""
+    attention and resize kernels, the int8 passes Q1 and Q2, the
+    training augmentation's two kernels (AUG, counted per launch), and
+    VDA's temporal attention op (TA, a call each)."""
     quant = importlib.import_module(f"{PKG}.ops.quant")
     taug = importlib.import_module(f"{PKG}.ops.augment")
+    tatt = importlib.import_module(f"{PKG}.ops.temporal_attention")
     fns = {"K1": fa.flash_attention, "K2": fa.flash_attention_bwd_fused,
            "K3": fa.flash_attention_bwd_split, "K4": fa.flash_attention_pair,
            "K5": fa.flash_attention_heads, "K6": rz.lerp_resize,
            "Q1": quant.quantize_int8, "Q2": quant.dequantize_int32,
-           "AUG": taug.augment_kernel}
+           "AUG": taug.augment_kernel, "TA": tatt.temporal_attention}
     if zero:
         for fn in fns.values():
             fn.launches = 0
@@ -1279,7 +1290,7 @@ def phase_video(model, smi: str) -> dict[str, dict[str, int]]:
             stats = result["engine"]
             n_b = stats["batches"]
             want = {k: v * n_b for k, v in per_batch.items()}
-            want.update(K2=0, K3=0, Q1=0, Q2=0, AUG=0)
+            want.update(K2=0, K3=0, Q1=0, Q2=0, AUG=0, TA=0)
             if sorted(depths) != list(range(VIDEO_FRAMES)):
                 raise AssertionError(f"video [{cfg}]: depth maps of frames "
                                      f"{sorted(depths)}")
@@ -1801,7 +1812,7 @@ def _captured(fn, *args):
 
 def _want(**launches) -> dict[str, int]:
     return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5",
-                                            "K6", "Q1", "Q2", "AUG")}
+                                            "K6", "Q1", "Q2", "AUG", "TA")}
 
 
 def phase_codecs(smi: str) -> None:
@@ -4359,6 +4370,130 @@ def phase_preempt(tmp: str, cli_data: list, smi: str) -> dict[str, int]:
 
 
 
+VDA_FRAME_HW = (1080, 1350)   # C3VD: 518 x 644 network input
+VDA_WINDOW = 32
+# A VDA-L window's temporal attention calls: 4 modules x 2 blocks.
+TA_PER_WINDOW = 8
+
+
+def phase_vda(smi: str) -> dict[str, int]:
+    """Video Depth Anything (phase "vda"): ``e3d::temporal_attn`` at
+    VDA-L's four module shapes timed on the device alone; one 32-frame
+    window at 518 x 644 through ``ClipRunner`` against the same model in
+    f32 with the plain attention (K1 off, TF32 off; ``map_rel_err``, the
+    benchmark's rule, within its 0.14); the engine's clip mode on two
+    interleaved 60-frame streams (every frame resolved, K1 24, K6 5 and
+    TA 8 a window); and ``cli.video_depth.main --model vda`` on a
+    40-frame AVI (two windows). Returns the launches of the engine's
+    streams."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    fa = importlib.import_module(f"{PKG}.ops.flash_attention")
+    rz = importlib.import_module(f"{PKG}.ops.resize")
+    attn = importlib.import_module(f"{PKG}.ops.attention")
+    da = importlib.import_module(f"{PKG}.models.depth_anything")
+    ta = importlib.import_module(f"{PKG}.ops.temporal_attention")
+    eng = importlib.import_module(f"{PKG}.serving.engine")
+    vd = importlib.import_module(f"{PKG}.cli.video_depth")
+    native = importlib.import_module(f"{PKG}.media.native")
+
+    for s, d in ((1702, 128), (437, 128), (1702, 32), (6808, 32)):
+        qkv = torch.randn((VDA_WINDOW, s, 3, 8, d), device="cuda",
+                          dtype=torch.bfloat16)
+        with torch.no_grad():
+            ms = _device_ms(lambda: ta.temporal_attention(qkv, VDA_WINDOW),
+                            10)
+        nbytes = 4 * VDA_WINDOW * s * 8 * d * 2
+        print(f"vda: temporal_attn (32, {s}, 3, 8, {d}): {ms:.4f} ms on the "
+              f"device, {nbytes / 1e6:.1f} MB, "
+              f"{100 * nbytes / PEAK_BYTES / (ms * 1e-3):.1f}% of the byte "
+              "bound")
+
+    model = da.build_vda_model("vitl", device="cuda", seed=0)
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(0, 256, (*VDA_FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(16)]
+    runner = da.ClipRunner(model, VDA_FRAME_HW)
+    clip = frames + frames
+    _video_counts(fa, rz, zero=True)
+    _, maps = runner(clip, None, 0)
+    torch.cuda.synchronize()
+    counts = _video_counts(fa, rz)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        _, maps = runner(clip, None, 0)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) / 3 * 1e3
+    f32 = da.build_vda_model("vitl", dtype=torch.float32, device="cuda",
+                             seed=0)
+    attn.set_force_plain(True)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, want = da.ClipRunner(f32, VDA_FRAME_HW)(clip, None, 0)
+    finally:
+        attn.set_force_plain(False)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    del f32
+    torch.cuda.empty_cache()
+    rel = float((maps - want).abs().mean()
+                / (want - want.mean(dim=(1, 2), keepdim=True)).abs().mean())
+    print(f"vda: a 32-frame window at {VDA_FRAME_HW} (518 x 644): "
+          f"{window_ms:.1f} ms through ClipRunner (upload, forward, resize "
+          f"back), map_rel_err against plain f32 {rel:.4f}; launches "
+          f"{counts}")
+    if not rel < 0.14 or counts["K1"] != BLOCKS or counts["TA"] != \
+            TA_PER_WINDOW or counts["K6"] != K6_VITL:
+        raise AssertionError(f"vda window: rel {rel}, launches {counts}")
+
+    _video_counts(fa, rz, zero=True)
+    with eng.DepthServingEngine(model, device="cuda") as e:
+        futs = [e.submit(frames[(i + k) % 16], stream=k) for i in range(60)
+                for k in (0, 1)]
+        for k in (0, 1):
+            e.end_stream(k)
+        out = [f.result() for f in futs]
+        stats = e.stats()
+    served = _video_counts(fa, rz)
+    windows = stats["batches"]
+    for m in out:
+        if m.shape != VDA_FRAME_HW or not np.isfinite(m).all() or m.min() < 0:
+            raise AssertionError(f"vda engine map: {m.shape}, "
+                                 f"[{m.min()}, {m.max()}]")
+    print(f"vda: engine clip mode, two 60-frame streams: {windows} windows, "
+          f"{len(out)} maps, launches {served}")
+    if windows != 6 or served["TA"] != TA_PER_WINDOW * windows or \
+            served["K1"] != BLOCKS * windows:
+        raise AssertionError(f"vda engine: {windows} windows, {served}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        avi = os.path.join(tmp, "in.avi")
+        with native.VideoWriter(avi, FRAME_HW[1], FRAME_HW[0], fps=30) as w:
+            for f in _frames(40, seed=9):
+                w.write_rgb(f)
+        seen = []
+        _video_counts(fa, rz, zero=True)
+        res = vd.main(["--model", "vda", "-i", avi, "-o",
+                       os.path.join(tmp, "out.mp4")],
+                      on_depth=lambda i, d: seen.append(d))
+        cli = _video_counts(fa, rz)
+    print(f"vda: video_depth --model vda wrote {res['frames']} frames; "
+          f"launches {cli}")
+    if res["frames"] != 40 or len(seen) != 40 or cli["TA"] != \
+            2 * TA_PER_WINDOW:
+        raise AssertionError(f"vda CLI: {res['frames']} frames, {cli}")
+    del model
+    torch.cuda.empty_cache()
+    return served
+
+
 # Wall seconds by phase, in the order they ran (``_timed``).
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -4491,6 +4626,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         pose = _timed("pose", phase_pose, tmp, smi)
     _timed("pose_parity", phase_pose_parity)
+    vda = _timed("vda", phase_vda, smi)
+    torch.cuda.empty_cache()
     # Every path's counts, each read back from its own run: "serve" is
     # DepthServingEngine's phase and "serve_cli" the serve CLI; "grads"
     # the vitl microbatch; "train" the four-step fit on the default
@@ -4505,6 +4642,14 @@ def main() -> int:
                **{f"parallel {label}": counts
                   for label, counts in parallel.items()}}
 
+    # VDA's temporal attention runs on no DAv2 path.
+    dav2_ta = {path: c.get("TA", 0) for path, c in
+               [*by_path.items(), *video.items(), *dials.items()]
+               if c.get("TA", 0)}
+    if dav2_ta:
+        raise AssertionError(f"temporal_attn launched on DAv2 paths: "
+                             f"{dav2_ta}")
+    print(f"temporal_attn: 0 launches on every DAv2 path; vda {vda['TA']}")
     k1["launches"] = serve["K1"]
     k1["launches_by_path"] = {"video": video["default"]["K1"]}
     # "video": the launches over the four configurations (the video

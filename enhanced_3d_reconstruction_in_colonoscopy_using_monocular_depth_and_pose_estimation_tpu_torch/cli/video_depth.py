@@ -17,6 +17,12 @@ Usage:
 The speed dials ``--token-merge``, ``--int8`` and ``--int8-calib K`` act
 as in the JAX package, through the serving engine (``--int8-calib``: the
 first K batches calibrate the static scales the whole video runs under).
+
+``--model vda`` runs Video Depth Anything (``--load-from`` its published
+``video_depth_anything_<encoder>.pth``) through the engine's clip mode:
+the video is one stream, cut into VDA's 32-frame windows with keyframes
+carried, aligned and blended, so each output frame is a temporally
+consistent relative disparity (no ``--max-depth``, no speed dials).
 """
 
 from __future__ import annotations
@@ -48,10 +54,14 @@ def main(argv=None, on_depth=None) -> dict:
     frame size) as it is rendered, with the frame's index in the input."""
     from ..media.colormap import colorize_depth, side_by_side
     from ..media.native import VideoWriter
-    from ..models.convert import load_or_init_depth_model
+    from ..models.convert import (load_or_init_depth_model,
+                                  load_or_init_vda_model)
     from ..serving.engine import DepthServingEngine
 
     p = argparse.ArgumentParser()
+    p.add_argument("--model", default="dav2", choices=["dav2", "vda"],
+                   help="dav2: per-frame metric depth; vda: Video Depth "
+                        "Anything over 32-frame windows")
     p.add_argument("--encoder", default="vitl",
                    choices=["vits", "vitb", "vitl", "vitg", "vitt"])
     p.add_argument("--load-from", default=None)
@@ -79,11 +89,18 @@ def main(argv=None, on_depth=None) -> dict:
     if args.every_n < 1:
         p.error("--every-n must be >= 1")
     check_speed_dials(p, args)
+    video = args.model == "vda"
+    if video and (args.int8 or args.token_merge):
+        p.error("--model vda takes no speed dial (--int8, --token-merge)")
 
-    model = load_or_init_depth_model(args.encoder, args.max_depth,
-                                     args.load_from, device=args.device,
-                                     token_merge=args.token_merge,
-                                     quant_int8=args.int8)
+    if video:
+        model = load_or_init_vda_model(args.encoder, args.load_from,
+                                       device=args.device)
+    else:
+        model = load_or_init_depth_model(args.encoder, args.max_depth,
+                                         args.load_from, device=args.device,
+                                         token_merge=args.token_merge,
+                                         quant_int8=args.int8)
     out_dir = os.path.dirname(os.path.abspath(args.output))
     os.makedirs(out_dir, exist_ok=True)
 
@@ -115,15 +132,21 @@ def main(argv=None, on_depth=None) -> dict:
 
             # Bounded in-flight window: decode/encode overlap device
             # compute without buffering the whole video in host memory.
-            window = max(2 * args.batch_size, 2)
+            # A VDA frame resolves once the window after its own has run:
+            # up to 30 frames later.
+            window = 64 if video else max(2 * args.batch_size, 2)
+            stream = {"stream": "video"} if video else {}
             pending: list[tuple[int, np.ndarray, object]] = []
             fps_in = None
             for i, rgb, fps_in in _frames(args.input, args.every_n,
                                           args.max_frames):
                 # engine.submit expects BGR (the cv2/serve convention)
-                pending.append((i, rgb, engine.submit(rgb[..., ::-1])))
+                pending.append((i, rgb, engine.submit(rgb[..., ::-1],
+                                                      **stream)))
                 if len(pending) >= window:
                     emit(*pending.pop(0))
+            if video and pending:
+                engine.end_stream("video")
             for item in pending:
                 emit(*item)
         stats = engine.stats()

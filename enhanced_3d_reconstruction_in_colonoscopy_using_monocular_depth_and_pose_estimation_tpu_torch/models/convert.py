@@ -16,6 +16,17 @@ rules of its ``convert_dav2``:
 - Dense ``(I, O)`` -> Linear ``(O, I)``;
 - LayerNorm ``scale`` -> ``weight``.
 
+``load_vda_state_dict`` loads Video Depth Anything's published
+checkpoint (``video_depth_anything_<encoder>.pth``) into a
+``VideoDepthAnything``: its head is ``head.`` where DAv2's is
+``depth_head.``, and each motion module
+(``head.motion_modules.<i>.temporal_transformer.``) becomes the port's
+``depth_head.motion_modules.<i>.``, with each
+attention block's ``to_q``, ``to_k`` and ``to_v`` packed into one
+(3C, C) ``to_qkv`` as the encoder packs its projections, and the
+sinusoidal ``pos_encoder.pe`` buffers (which the port recomputes)
+dropped after a check of their values.
+
 ``from_jax_pose_variables`` does the same for the pose net's
 ``{"params", "batch_stats"}`` (the inverse of the JAX package's
 ``convert_pose_net``). The port's pose net has the reference's names, so
@@ -55,7 +66,9 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
     ``.ckpt``, and neither gives the seeded random init. A directory of
     the JAX package's Orbax checkpoints raises ``ValueError`` naming the
     converter (``orbax_to_torch.py`` at the repo root): reading Orbax
-    needs jax, which the port does not import."""
+    needs jax, which the port does not import. A Video Depth Anything
+    checkpoint (motion-module keys) raises ``ValueError`` naming
+    ``video_depth --model vda``: every per-frame entry point loads here."""
     from ..core.checkpoint import CheckpointManager
 
     model = build_depth_model(encoder, max_depth=max_depth, dtype=dtype,
@@ -74,9 +87,33 @@ def load_or_init_depth_model(encoder: str, max_depth: float,
             raise FileNotFoundError(f"no checkpoints in {load_from}")
         model.load_state_dict(state["model"])
     elif load_from:
-        load_dav2_state_dict(model, load_torch_state_dict(load_from))
+        state = load_torch_state_dict(load_from)
+        if any(k.startswith(_VDA_MM) for k in state):
+            raise ValueError(
+                f"{load_from} is a Video Depth Anything checkpoint "
+                f"({_VDA_MM}*): it runs 32-frame clips of a video, which a "
+                "single frame is not; run it with `video_depth --model vda "
+                f"--load-from {load_from}`")
+        load_dav2_state_dict(model, state)
     else:
         print(f"[{encoder}] no checkpoint given; random init (smoke mode)")
+    return model
+
+
+def load_or_init_vda_model(encoder: str, load_from: str | None,
+                           device: str | torch.device = "cuda") -> nn.Module:
+    """The ``encoder`` Video Depth Anything model on ``device`` in eval
+    mode: a published ``video_depth_anything_<encoder>.pth`` when
+    ``load_from`` names one (``load_vda_state_dict``), else the seeded
+    random init."""
+    from .depth_anything import build_vda_model
+
+    model = build_vda_model(encoder, device=device)
+    if load_from:
+        load_vda_state_dict(model, load_torch_state_dict(load_from))
+    else:
+        print(f"[vda {encoder}] no checkpoint given; random init (smoke "
+              "mode)")
     return model
 
 
@@ -111,6 +148,69 @@ def load_dav2_state_dict(model: nn.Module,
     tensors = {k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
                for k, v in drop_unused(state).items()}
     model.load_state_dict(tensors, strict=True)
+    return model
+
+
+_VDA_MM = "head.motion_modules."
+_VDA_TT = ".temporal_transformer."
+# VDA's names inside a motion module -> the port's.
+_VDA_RENAMES = (("transformer_blocks.0.attention_blocks.", "attention_blocks."),
+                ("transformer_blocks.0.norms.", "norms."),
+                ("transformer_blocks.0.ff_norm.", "ff_norm."),
+                ("transformer_blocks.0.ff.net.0.proj.", "ff_proj."),
+                ("transformer_blocks.0.ff.net.2.", "ff_out."),
+                ("to_out.0.", "to_out."))
+
+
+def _vda_key(key: str) -> str:
+    """A published VDA key -> the port's (``head.`` -> ``depth_head.``,
+    a motion module's path shortened); ``to_q``/``to_k``/``to_v`` keep
+    their names (``load_vda_state_dict`` packs them)."""
+    if key.startswith(_VDA_MM):
+        i, rest = key[len(_VDA_MM):].split(_VDA_TT, 1)
+        for old, new in _VDA_RENAMES:
+            rest = rest.replace(old, new)
+        return f"depth_head.motion_modules.{i}.{rest}"
+    if key.startswith("head."):
+        return "depth_head." + key[len("head."):]
+    return key
+
+
+def vda_state_dict(state: Mapping[str, object]) -> dict[str, torch.Tensor]:
+    """A published VDA state dict -> the port's ``VideoDepthAnything``
+    state dict (see the module docstring). A ``pos_encoder.pe`` buffer
+    that is not VDA's sinusoid raises."""
+    from .temporal import sinusoid_table
+
+    out: dict[str, torch.Tensor] = {}
+    qkv: dict[str, dict[str, torch.Tensor]] = {}
+    for key, value in drop_unused({_vda_key(k): v
+                                   for k, v in state.items()}).items():
+        t = value if torch.is_tensor(value) else torch.from_numpy(
+            np.asarray(value))
+        stem, _, leaf = key.rpartition(".")
+        if stem.endswith(".pos_encoder"):
+            want = sinusoid_table(t.shape[-2], t.shape[-1])
+            if not torch.allclose(t.reshape(want.shape).float().cpu(), want,
+                                  atol=1e-5):
+                raise ValueError(f"{key}: not the sinusoidal encoding")
+            continue
+        head, _, proj = stem.rpartition(".")
+        if proj in ("to_q", "to_k", "to_v") and leaf == "weight":
+            qkv.setdefault(head, {})[proj] = t
+            continue
+        out[key] = t
+    for head, parts in qkv.items():
+        out[f"{head}.to_qkv.weight"] = torch.cat(
+            [parts[p] for p in ("to_q", "to_k", "to_v")])
+    return out
+
+
+def load_vda_state_dict(model: nn.Module,
+                        state: Mapping[str, object]) -> nn.Module:
+    """Load a published VDA state dict (``vda_state_dict``) into a
+    ``VideoDepthAnything``, strictly."""
+    model.load_state_dict(vda_state_dict(state), strict=True)
     return model
 
 

@@ -6,6 +6,13 @@ reference's per-frame semantics: lower-bound aspect-preserving resize to
 multiples of 14, ImageNet normalization, forward, bilinear back to the
 frame size. Batched serving uploads uint8 BGR and does the flip and /255
 on the device.
+
+``VideoDepthAnything`` is Video Depth Anything (Chen et al., CVPR 2025):
+the same encoder and a DPT head with four temporal modules, run on clips
+of frames and giving a relative disparity (ReLU, no ``max_depth``).
+``ClipRunner`` runs its windows of one frame resolution; the serving
+engine's clip mode (``serving/engine.py``, ``serving/clips.py``) cuts
+streams into windows and stitches them as VDA's ``infer_video_depth``.
 """
 
 from __future__ import annotations
@@ -87,6 +94,39 @@ class DepthAnythingV2(nn.Module):
         return depth01 * self.max_depth
 
 
+class VideoDepthAnything(nn.Module):
+    """Video Depth Anything (``video_depth.py``'s ``VideoDepthAnything``):
+    ``disparity = relu(head_temporal(vit(x)))`` over clips.
+
+    Input: (B, T, H, W, 3) NHWC, ImageNet-normalized, H/W multiples of
+    14. Output: (B, T, H, W) f32 relative disparity (>= 0). The head's
+    temporal modules attend over each clip's T frames (at most
+    ``clip_frames``, the published 32). ``dtype`` is the compute dtype;
+    parameters stay f32. Inference only (the temporal op raises under
+    autograd)."""
+
+    clip_frames = 32
+
+    def __init__(self, encoder: str = "vitl", features: int = 256,
+                 out_channels: tuple[int, ...] = (256, 512, 1024, 1024),
+                 dtype: torch.dtype = POLICY_BF16.compute_dtype):
+        super().__init__()
+        self.pretrained = DinoViT(encoder, dtype)
+        self.depth_head = DPTHead(VIT_ARCHS[encoder]["embed_dim"], features,
+                                  out_channels, temporal=True,
+                                  output="relu")
+
+    def forward(self, clips: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = clips.shape
+        if t > self.clip_frames:
+            raise ValueError(f"clips of {t} frames; the temporal encoding "
+                             f"holds {self.clip_frames}")
+        taps = self.pretrained(clips.reshape(b * t, h, w, c))
+        disp = self.depth_head(taps, h // PATCH_SIZE, w // PATCH_SIZE,
+                               frames=t)
+        return disp.view(b, t, h, w)
+
+
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: LeCun-normal matrices and conv kernels (as
@@ -145,6 +185,25 @@ def build_depth_model(encoder: str, max_depth: float = 20.0,
     return init_random(model, seed).eval()
 
 
+def build_vda_model(encoder: str = "vitl",
+                    dtype: torch.dtype = POLICY_BF16.compute_dtype,
+                    device: str | torch.device = "cuda", seed: int = 0
+                    ) -> VideoDepthAnything:
+    """The ``encoder`` VDA model on ``device`` in eval mode, with seeded
+    random weights as ``build_depth_model`` draws them (the motion
+    modules' ``proj_out`` too, which VDA zero-initialises before
+    training). VDA's ``model_configs`` are DAv2's widths; the debug
+    ``vitt`` takes out_channels (16, 32, 64, 64), as GroupNorm's 32
+    groups need motion-module widths of a multiple of 32."""
+    cfg = MODEL_CONFIGS[encoder]
+    out_channels = ((16, 32, 64, 64) if encoder == "vitt"
+                    else tuple(cfg["out_channels"]))
+    with resolve_device(device):
+        model = VideoDepthAnything(encoder, cfg["features"], out_channels,
+                                   dtype)
+    return init_random(model, seed).eval()
+
+
 def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
@@ -191,11 +250,17 @@ def _run_batched(model: DepthAnythingV2, rgb01: torch.Tensor,
                  net_hw: tuple[int, int], out_hw: tuple[int, int]
                  ) -> torch.Tensor:
     """(B, H, W, 3) RGB in [0, 1] -> (B, *out_hw) f32 depth."""
+    depth = model(_normalized(rgb01, net_hw))
+    return resize_align_corners(depth[..., None], tuple(out_hw))[..., 0]
+
+
+def _normalized(rgb01: torch.Tensor, net_hw: tuple[int, int]
+                ) -> torch.Tensor:
+    """(B, H, W, 3) RGB in [0, 1] -> the network's (B, *net_hw, 3) input:
+    the antialiased bicubic resize and ImageNet normalisation."""
     mean, std = _imagenet(rgb01.device)
     x = resize_antialias(rgb01, net_hw, method="bicubic")
-    x = (x - mean) / std
-    depth = model(x)
-    return resize_align_corners(depth[..., None], tuple(out_hw))[..., 0]
+    return (x - mean) / std
 
 
 def rgb01_of_bgr_u8(bgr_u8: torch.Tensor) -> torch.Tensor:
@@ -339,6 +404,63 @@ class BatchedRunner:
             debug.count("runner.rows", size)
             debug.count("runner.padded_rows", size - n)
         return outputs
+
+
+class ClipRunner:
+    """Windows of ONE frame resolution through a ``VideoDepthAnything``
+    on its device, one clip (B = 1) a call.
+
+    ``__call__(frames, carried, pad)``: the window's new uint8 BGR frames
+    go up as one stack (``runner.upload``), are resized and normalised on
+    the device, follow ``carried`` (the network inputs a window keeps
+    from the one before, already on the device) and precede ``pad``
+    copies of the stream's last input; the clip runs, and each map goes
+    back to frame size, align-corners bilinear (``runner.launch``).
+    Returns the window's network inputs (T, h, w, 3) and its maps
+    (T, H, W) f32, both on the device; ``readback`` brings maps to host
+    memory (``runner.readback``). Counters ``runner.rows`` (positions
+    run) and ``runner.padded_rows`` (padding among them)."""
+
+    def __init__(self, model: VideoDepthAnything,
+                 resolution_hw: tuple[int, int], input_size: int = 518):
+        self.model = model
+        self.resolution_hw = tuple(resolution_hw)
+        self.net_hw = _lower_bound_hw(*self.resolution_hw, input_size)
+        self.device = _model_device(model)
+
+    @torch.inference_mode()
+    def __call__(self, bgr_frames: list[np.ndarray],
+                 carried: torch.Tensor | None, pad: int,
+                 last_input: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        for f in bgr_frames:
+            if f.shape[:2] != self.resolution_hw:
+                raise ValueError("ClipRunner is built for "
+                                 f"{self.resolution_hw}; got {f.shape[:2]}")
+        with debug.span("runner.upload"):
+            up = (torch.from_numpy(np.stack(bgr_frames)).to(self.device)
+                  if bgr_frames else None)
+        with debug.span("runner.launch"):
+            parts = [] if carried is None else [carried]
+            if up is not None:
+                parts.append(_normalized(rgb01_of_bgr_u8(up), self.net_hw))
+                last_input = parts[-1][-1:]
+            if pad:
+                if last_input is None:
+                    raise ValueError("ClipRunner: padding with no frame")
+                parts.append(last_input.expand(pad, *last_input.shape[1:]))
+            inputs = torch.cat(parts) if len(parts) > 1 else parts[0]
+            disp = self.model(inputs[None])[0]
+            maps = resize_align_corners(disp[..., None],
+                                        self.resolution_hw)[..., 0]
+        debug.count("runner.rows", inputs.shape[0])
+        debug.count("runner.padded_rows", pad)
+        return inputs, maps
+
+    @staticmethod
+    def readback(maps: torch.Tensor) -> list[np.ndarray]:
+        with debug.span("runner.readback"):
+            return list(maps.cpu().numpy())
 
 
 def visible_cards(device: torch.device) -> int:

@@ -14,6 +14,16 @@ Module names are the DAv2 checkpoint's (``depth_head.projects.{i}``,
 - head: 3x3 conv -> bilinear to (14*ph, 14*pw) -> 3x3 conv -> ReLU ->
   1x1 conv -> sigmoid, the last conv and the sigmoid in f32.
 
+``temporal=True`` makes it Video Depth Anything's ``DPTHeadTemporal``:
+four motion modules (``models/temporal.py``, ``depth_head.motion_modules
+.{0..3}``) after the reassembled ``layer_3`` and ``layer_4`` (widths
+``out_channels[2]`` and ``[3]``) and after ``refinenet4`` and
+``refinenet3`` (width ``features``). The head runs on the B*T frames of
+B clips of ``frames`` consecutive frames; only the modules regroup them
+by clip. ``output="relu"`` ends in VDA's ReLU (a relative disparity)
+instead of the sigmoid. Without motion modules the head issues the same
+op calls as the DAv2 head.
+
 Each conv computes in its input's dtype (bf16 on the card) with f32
 parameters cast at use. The f32 head conv is written as a matmul: a
 float32 cuDNN convolution would run in TF32 by default. The JAX package's
@@ -38,6 +48,7 @@ from torch import nn
 
 from ..ops.quant import int8_conv
 from ..ops.resize import resize_align_corners
+from .temporal import TemporalModule
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
@@ -119,9 +130,14 @@ class _Scratch(nn.Module):
 
 class DPTHead(nn.Module):
     def __init__(self, embed_dim: int, features: int,
-                 out_channels: Sequence[int], quant: bool = False):
+                 out_channels: Sequence[int], quant: bool = False,
+                 temporal: bool = False, output: str = "sigmoid"):
         super().__init__()
+        if output not in ("sigmoid", "relu"):
+            raise ValueError(f"DPTHead output {output!r}; expected "
+                             "'sigmoid' or 'relu'")
         self.quant = quant
+        self.output = output
         oc = list(out_channels)
         self.projects = nn.ModuleList(nn.Conv2d(embed_dim, c, 1) for c in oc)
         self.resize_layers = nn.ModuleList([
@@ -131,12 +147,18 @@ class DPTHead(nn.Module):
             nn.Conv2d(oc[3], oc[3], 3, stride=2, padding=1),
         ])
         self.scratch = _Scratch(features, oc, quant)
+        self.motion_modules = (nn.ModuleList(
+            TemporalModule(c) for c in (oc[2], oc[3], features, features))
+            if temporal else None)
 
     def forward(self, taps: list[tuple[torch.Tensor, torch.Tensor]],
-                patch_h: int, patch_w: int) -> torch.Tensor:
+                patch_h: int, patch_w: int, frames: int = 1
+                ) -> torch.Tensor:
         """taps: 4 x (patch_tokens (B, N, C), cls). Returns (B, 14ph, 14pw)
-        f32 in [0, 1] (sigmoid)."""
+        f32: in [0, 1] (sigmoid) or >= 0 (relu). With motion modules, B is
+        a whole number of clips of ``frames`` consecutive frames."""
         assert len(taps) == 4
+        mm = self.motion_modules
         outs = []
         for i, (tokens, _cls) in enumerate(taps):
             b, _, c = tokens.shape
@@ -148,21 +170,30 @@ class DPTHead(nn.Module):
             elif isinstance(layer, nn.Conv2d):
                 x = qconv(x, layer, self.quant)
             outs.append(x)
+        if mm is not None:
+            outs[2] = mm[0](outs[2], frames)
+            outs[3] = mm[1](outs[3], frames)
 
         s = self.scratch
         l1, l2, l3, l4 = (qconv(x, getattr(s, f"layer{i + 1}_rn"),
                                 self.quant) for i, x in enumerate(outs))
         path4 = s.refinenet4(l4, None, out_hw=tuple(l3.shape[-2:]))
+        if mm is not None:
+            path4 = mm[2](path4, frames)
         path3 = s.refinenet3(path4, l3, out_hw=tuple(l2.shape[-2:]))
+        if mm is not None:
+            path3 = mm[3](path3, frames)
         path2 = s.refinenet2(path3, l2, out_hw=tuple(l1.shape[-2:]))
         path1 = s.refinenet1(path2, l1)
 
         out = qconv(path1, s.output_conv1, self.quant)
         out = _resize(out, (patch_h * 14, patch_w * 14))
         out = conv(out, s.output_conv2[0])
-        # Final 1x1 conv and sigmoid in f32 (bf16 sigmoid saturation costs
-        # depth resolution), as a matmul over channels: no TF32.
+        # Final 1x1 conv and sigmoid (or ReLU) in f32 (bf16 sigmoid
+        # saturation costs depth resolution), as a matmul over channels:
+        # no TF32.
         head = s.output_conv2[2]
         z = torch.einsum("bchw,c->bhw", F.relu(out.float()),
                          head.weight[0, :, 0, 0].float())
-        return torch.sigmoid(z + head.bias[0].float())
+        z = z + head.bias[0].float()
+        return torch.sigmoid(z) if self.output == "sigmoid" else F.relu(z)

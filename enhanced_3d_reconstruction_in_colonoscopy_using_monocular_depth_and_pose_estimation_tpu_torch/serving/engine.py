@@ -36,10 +36,31 @@ held. So a held backlog waits at most ``max_delay_s`` for more frames:
 the JAX package's engine waits for the next frame without a timeout and
 hangs when the frames stop, below K batches, at a multiple of the batch
 size.
+
+Clip mode: an engine built on a Video Depth Anything model
+(``models.depth_anything.VideoDepthAnything``) serves streams, not
+frames: ``submit(frame, stream=key)`` keys each frame by its stream, in
+order, and ``end_stream(key)`` says the stream has ended. The batcher
+cuts each stream into VDA's windows (``serving/clips.py``: 32 positions,
+22 new frames each after the first, the first 10 carried from the window
+before), runs one window a forward (B = 1, 32 frames) through a
+``ClipRunner``, aligns and blends it on the device, and resolves a
+frame's future with its final map: most frames with their window, the
+last 8 of a window with the next window's blend, and the rest of a stream
+once ``end_stream`` has run its last window, padded with copies of its
+last frame. Windows run in the order their streams became ready. A
+stream's state is freed at its end. ``close()`` ends every open stream.
+Besides the frame spans, each window leaves ``clip.collect`` (the
+window's first new frame taken to the window formed; ``value`` the
+stream's window number) and ``clip.stitch`` (alignment and blend), inside
+``engine.batch``, and the counters ``clip.windows``, ``clip.new_frames``,
+``clip.carried_frames`` and ``clip.padded_frames``; ``stats()`` counts a
+window as a batch whose fill is the frames it resolved.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import queue
 import threading
@@ -48,10 +69,13 @@ from concurrent.futures import Future
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from ..core import debug
 from ..core.device import resolve_device
-from ..models.depth_anything import BatchedRunner
+from ..models.depth_anything import (BatchedRunner, ClipRunner,
+                                     VideoDepthAnything)
+from . import clips as cliplib
 
 
 class _Stats:
@@ -117,6 +141,10 @@ class DepthServingEngine:
                 raise ValueError("calib_batches requires a quant_int8 "
                                  "model (--int8)")
         self._fixed_runner = runner
+        self.clip_mode = isinstance(model, VideoDepthAnything)
+        if self.clip_mode and (runner is not None or self.calib_batches):
+            raise ValueError("a video model serves through its own clip "
+                             "runner, without calibration")
         self.model = (None if model is None
                       else model.to(resolve_device(device)).eval())
         self.input_size = input_size
@@ -132,14 +160,27 @@ class DepthServingEngine:
         self._lock = threading.Lock()
         self._frame_numbers = itertools.count()   # under self._lock
         self._batch_numbers = itertools.count()   # worker-local
+        # Clip mode, worker-local: streams by key, those ready in order.
+        self._streams: dict = {}
+        self._ready: collections.deque = collections.deque()
+        self._clip_runners: dict[tuple, ClipRunner] = {}
         self._run_span = debug.span("engine.run")
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     # ------------------------------------------------------------------ API
 
-    def submit(self, bgr: np.ndarray) -> Future:
-        """Submit one BGR uint8 frame; resolves to an (H, W) f32 depth map."""
+    def submit(self, bgr: np.ndarray, stream=None) -> Future:
+        """Submit one BGR uint8 frame; resolves to an (H, W) f32 map:
+        metric depth, or in clip mode (``stream``, any hashable key, is
+        required there and refused elsewhere) the frame's final aligned
+        relative disparity."""
+        if (stream is None) == self.clip_mode:
+            raise ValueError("submit(frame, stream=key) serves a video "
+                             "model; a frame model takes no stream"
+                             if self.clip_mode is False else
+                             "a video model serves streams: "
+                             "submit(frame, stream=key)")
         fut: Future = Future()
         with self._lock:  # closed-check + put must be atomic vs close()
             if self._closed:
@@ -148,8 +189,18 @@ class DepthServingEngine:
             # concurrent stats() reader never sees completed > submitted.
             self._stats.note_submit()
             self._queue.put((bgr, fut, time.perf_counter_ns(),
-                             next(self._frame_numbers)))
+                             next(self._frame_numbers), stream))
         return fut
+
+    def end_stream(self, stream) -> None:
+        """Clip mode: ``stream`` has no more frames; its last windows run
+        (padded) and its state is freed."""
+        if not self.clip_mode:
+            raise ValueError("end_stream applies to a video model")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            self._queue.put(("end", stream))
 
     def submit_many(self, frames: Sequence[np.ndarray]) -> list[Future]:
         return [self.submit(f) for f in frames]
@@ -315,7 +366,130 @@ class DepthServingEngine:
 
     def _run(self) -> None:
         with self._run_span:
-            self._loop()
+            if self.clip_mode:
+                self._clip_loop()
+            else:
+                self._loop()
+
+    # ------------------------------------------------------------ clip mode
+
+    def _clip_loop(self) -> None:
+        """Take frames and ends off the queue into their streams; run the
+        oldest ready stream's next window whenever one is ready. At
+        ``close()`` every open stream ends and runs out."""
+        while True:
+            block = not self._ready
+            try:
+                item = self._queue.get(block=block)
+            except queue.Empty:
+                self._clip_window(self._ready.popleft())
+                continue
+            if item is None:
+                for st in list(self._streams.values()):
+                    st.ended = True
+                    self._mark_ready(st)
+                while self._ready:
+                    self._clip_window(self._ready.popleft())
+                return
+            if isinstance(item[0], str):        # ("end", key)
+                st = self._streams.get(item[1])
+                if st is not None:
+                    st.ended = True
+                    self._mark_ready(st)
+                continue
+            self._clip_take(item)
+
+    def _clip_take(self, item) -> None:
+        now = time.perf_counter_ns()
+        debug.record("engine.queue", item[2], now, item[3])
+        key = item[4]
+        st = self._streams.get(key)
+        if st is None:
+            st = self._streams[key] = cliplib.Stream(key, item[0].shape)
+        if item[0].shape != st.shape or st.ended:
+            item[1].set_exception(ValueError(
+                f"stream {key!r}: " + ("ended" if st.ended else
+                f"frame {item[0].shape}, the stream's are {st.shape}")))
+            self._frame_done(item, None)
+            self._stats.note_batch(1, True)
+            return
+        st.pending.append((item, now))
+        st.received += 1
+        self._mark_ready(st)
+
+    def _mark_ready(self, st) -> None:
+        if st.ready() and st.key not in self._ready:
+            self._ready.append(st.key)
+
+    def _clip_runner(self, shape: tuple) -> ClipRunner:
+        runner = self._clip_runners.get(shape)
+        if runner is None:
+            runner = self._clip_runners[shape] = ClipRunner(
+                self.model, shape[:2], self.input_size)
+        return runner
+
+    def _clip_window(self, key) -> None:
+        """Run stream ``key``'s next window, stitch it and resolve the
+        frames it makes final."""
+        st = self._streams[key]
+        k = st.windows
+        taken = st.pending[:st.need()]
+        del st.pending[:len(taken)]
+        take = [item for item, _ in taken]
+        pad = st.need() - len(take)
+        now = time.perf_counter_ns()
+        debug.record("clip.collect", taken[0][1] if taken else now, now, k,
+                     value=len(take))
+        carried = 0 if k == 0 else cliplib.OVERLAP
+        # New positions final at once; the rest wait for the next blend.
+        n_final = cliplib.FINAL_END - carried
+        waiting = st.waiting
+        failed = False
+        with debug.span("engine.batch", next(self._batch_numbers)) as batch:
+            t0 = time.perf_counter()
+            try:
+                inputs, maps = self._clip_runner(st.shape)(
+                    [item[0] for item in take], st.carried, pad,
+                    st.last_input)
+                if take:
+                    end = carried + len(take)
+                    st.last_input = inputs[end - 1:end]
+                st.carried = inputs[list(cliplib.KEYFRAMES)]
+                with debug.span("clip.stitch", k):
+                    final, st.ref, st.tail, done = cliplib.stitch(
+                        maps, k == 0, st.ref, st.tail)
+                st.windows += 1
+                st.waiting = take[n_final:]
+                items = waiting + take[:n_final]
+                out = ([] if done is None else [done[:len(waiting)]]) \
+                    + [final[:len(take[:n_final])]]
+                if st.done():     # no window follows: the tail is final
+                    items += st.waiting
+                    out.append(st.tail[:len(st.waiting)])
+                    st.waiting = []
+                host = ClipRunner.readback(torch.cat(out))
+                for item, depth in zip(items, host):
+                    item[1].set_result(depth)
+                    self._frame_done(item, batch.id)
+            except Exception as exc:
+                # The stream is dropped; the worker keeps serving.
+                failed = True
+                items = waiting + take + [item for item, _ in st.pending]
+                st.pending, st.waiting, st.ended = [], [], True
+                for item in items:
+                    if not item[1].done():
+                        item[1].set_exception(exc)
+                        self._frame_done(item, batch.id)
+            runner_s = time.perf_counter() - t0
+        debug.count("clip.windows")
+        debug.count("clip.new_frames", len(take))
+        debug.count("clip.carried_frames", carried)
+        debug.count("clip.padded_frames", pad)
+        self._stats.note_batch(len(items), failed, runner_s)
+        if failed or st.done():
+            self._streams.pop(key, None)
+        elif st.ready():
+            self._ready.append(key)
 
     def _loop(self) -> None:
         while True:

@@ -30,12 +30,14 @@ MODULES = (
     "evaluation.depth_metrics", "evaluation.pose_metrics", "losses.pose_loss",
     "losses.silog", "media.colormap", "media.imageio", "media.native",
     "media.video", "models.convert", "models.depth_anything",
-    "models.dinov2", "models.dpt", "models.resnet_pose", "ops.attention",
-    "ops.augment", "ops.flash_attention", "ops.quant", "ops.quaternion",
-    "ops.resize", "ops.token_merge", "parallel", "parallel.mesh",
+    "models.dinov2", "models.dpt", "models.resnet_pose", "models.temporal",
+    "ops.attention", "ops.augment", "ops.flash_attention", "ops.quant",
+    "ops.quaternion", "ops.resize", "ops.temporal_attention",
+    "ops.token_merge", "parallel", "parallel.mesh",
     "parallel.pipeline",
     "recon", "recon.native", "recon.ply", "recon.pointcloud",
-    "recon.poisson", "recon.stages", "serving.engine", "serving.export",
+    "recon.poisson", "recon.stages", "serving.clips", "serving.engine",
+    "serving.export",
     "train.depth_task", "train.loop", "train.optim",
     "train.pose_task", "utils.cbuild", "utils.experiment",
 )

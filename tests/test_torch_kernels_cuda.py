@@ -1152,3 +1152,29 @@ def test_exported_replay_counts_its_launches(card, tmp_path):
         params, torch.from_numpy(x).to(card))
     assert type(live) is torch.Tensor and live.device.type == "cuda"
     assert (got - live).abs().max() <= 1e-3 * max(live.abs().max(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(1702, 128), (437, 128), (6808, 32),
+                                 (1702, 32)])
+def test_temporal_attn_matches_plain(s, d, card):
+    """``e3d::temporal_attn`` on the card (SDPA on the clip's strided
+    views) against its plain version, at VDA-L's motion-module shapes
+    (T = 32, 8 heads; D 128 at layer_3 and layer_4, 32 at path_4 and
+    path_3): bf16 outputs within a few bf16 ulps of max |o|, one launch
+    counted a call, bit for bit from call to call."""
+    from enhanced_3d_reconstruction_in_colonoscopy_using_monocular_depth_and_pose_estimation_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device=card).manual_seed(s + d)
+    qkv = torch.randn((32, s, 3, 8, d), generator=gen, device=card,
+                      dtype=torch.bfloat16)
+    before = ta.temporal_attention.launches
+    with torch.no_grad():
+        got = ta.temporal_attention(qkv, 32)
+        again = ta.temporal_attention(qkv, 32)
+        want = ta.temporal_attention_reference(qkv, 32)
+    assert ta.temporal_attention.launches == before + 2
+    assert got.shape == (32, s, 8, d) and got.dtype == torch.bfloat16
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+    assert torch.equal(got, again)
